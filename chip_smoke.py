@@ -1,0 +1,521 @@
+#!/usr/bin/env python3
+"""Smoke test of mash_tpu_torch's main path (sketch -> dist) on one GPU.
+
+Run from the root of a checkout on a machine with an NVIDIA H100 and the
+CUDA toolkit:
+
+    python3 chip_smoke.py [--seed N]
+
+Phases (any failure exits non-zero before the result lines):
+
+1. device: the card's name and power limit;
+2. build: the CUDA kernels (one nvcc per source, in parallel) and the
+   native parser library;
+3. kernels: each kernel at the main path's shapes against its plain
+   PyTorch version on the same inputs (exact equality: every output is an
+   integer), timed with CUDA events (median of 7 after one warm-up);
+4. end to end through ``mash_tpu_torch.__main__.main``: ``sketch`` of 64
+   synthetic 4 Mibase genomes, ``dist`` of those 64 sketches (4096 pairs,
+   the 64-bit kernel) and of 1024 sketches with controlled overlap
+   (10^6 pairs, rank compression + the 32-bit kernel); cross-checked
+   against the CPU's plain path on two genomes and a 128 x 128 block.
+   Every kernel's launch count is reset just before this phase and must
+   be positive after it.  Each main-path command prints one JSON line
+   with its wall seconds and the wall seconds of its stages
+   (``mash_tpu_torch.utils.stage``); with ``--profile`` the line also
+   holds the share of that wall time in which the card ran a kernel
+   (``torch.profiler``, CUDA activity only) and the kernels that took
+   most of it.
+
+The last three lines of stdout are the card's ``nvidia-smi`` name and
+power limit, a ``{"kernels": [...]}`` summary and
+``{"ok": true, "device": {...}}``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import io
+import json
+import os
+import subprocess
+import sys
+import tempfile
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+# Published H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, and the
+# float32 rate outside the tensor cores, used here as the scalar-lane
+# rate for the kernels' integer operations (no integer tensor-core work).
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_SCALAR_OPS_PER_S = 67e12
+
+K = 21
+S = 1000
+N_GENOMES = 64
+GENOME_LEN = 1 << 22  # 4 Mibase: files clear the 4 MiB fast-ingest gate
+N_BIG = 1024
+REPEATS = 7
+
+
+class SmokeError(RuntimeError):
+    pass
+
+
+def require(cond: bool, what: str) -> None:
+    if not cond:
+        raise SmokeError(what)
+
+
+def nvidia_smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout
+    return out.strip().splitlines()[0]
+
+
+def cuda_ms(fn, repeats: int = REPEATS) -> float:
+    """Median milliseconds of ``fn()`` on the current stream."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(repeats):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    times.sort()
+    return times[len(times) // 2]
+
+
+def max_abs_err(got, want) -> float:
+    """0.0 when the integer outputs are equal, else the largest gap."""
+    import torch
+
+    err = 0.0
+    for g, w in zip(got, want):
+        if not torch.equal(g, w):
+            err = max(err, float((g.double() - w.double()).abs().max()))
+    return err
+
+
+def murmur_ops(k: int) -> int:
+    """64-bit operations of MurmurHash3_x64_128 h1 over k bytes."""
+    ops = 24 * (k // 16) + 22
+    if k % 16 > 8:
+        ops += 6
+    if k % 16:
+        ops += 6
+    return ops
+
+
+def bound(nbytes: float, nops: float):
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = nops / PEAK_SCALAR_OPS_PER_S * 1e3
+    if t_bytes >= t_ops:
+        return t_bytes, "bytes"
+    return t_ops, "operations"
+
+
+def device_profile(fn):
+    """Run ``fn()`` under ``torch.profiler``; returns ``(result, wall
+    seconds, busy seconds, {kernel name: seconds})``, busy being the
+    union of the intervals in which a kernel ran on the card."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    spans, per_name = [], {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        a, b = e.time_range.start, e.time_range.end
+        spans.append((a, b))
+        per_name[e.name] = per_name.get(e.name, 0.0) + (b - a) * 1e-6
+    busy, end = 0.0, float("-inf")
+    for a, b in sorted(spans):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return result, wall, busy * 1e-6, per_name
+
+
+def timed_cli(name, argv, env, profile_device: bool):
+    """``run_cli`` with the command's wall time and stage breakdown
+    printed as one JSON line; returns stdout."""
+    import torch
+
+    from mash_tpu_torch.utils.profiling import pop_stage_totals
+
+    pop_stage_totals()
+    torch.cuda.synchronize()
+    line = {"command": name}
+    if profile_device:
+        out, wall, busy, per_name = device_profile(lambda: run_cli(argv, env))
+        top = sorted(per_name.items(), key=lambda kv: -kv[1])[:6]
+        line.update(device_busy_s=busy, device_busy_share=busy / wall,
+                    top_kernels_s=dict(top))
+    else:
+        t0 = time.perf_counter()
+        out = run_cli(argv, env)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    line.update(wall_s=wall, stages_s=pop_stage_totals())
+    print(json.dumps(line), flush=True)
+    return out, wall
+
+
+def run_cli(argv, env=None) -> str:
+    """Drive ``mash_tpu_torch``'s CLI in-process; returns stdout."""
+    from mash_tpu_torch.__main__ import main
+
+    old = {k: os.environ.get(k) for k in (env or {})}
+    os.environ.update(env or {})
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = main(argv)
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    require(rc in (0, None), "mash_tpu_torch %s exited %s" % (argv, rc))
+    return buf.getvalue()
+
+
+# -- inputs ---------------------------------------------------------------
+
+def random_chunks(rng, rows: int, length: int):
+    """ACGT bytes with ~0.1% N and some lowercase, like one fold batch."""
+    import numpy as np
+
+    seq = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, (rows, length))]
+    seq[rng.random((rows, length)) < 0.001] = ord("N")
+    lower = rng.random((rows, length)) < 0.02
+    seq[lower] += 32
+    return np.ascontiguousarray(seq)
+
+
+def overlap_sketches(rng, n: int, s: int, cluster: int = 32):
+    """n sorted distinct uint64 sketches of size s in clusters whose
+    members share 20-95% of their cluster's center."""
+    import numpy as np
+
+    out = np.empty((n, s), dtype=np.uint64)
+    for c0 in range(0, n, cluster):
+        center = rng.integers(0, 2**64 - 1, s, dtype=np.uint64)
+        for i in range(c0, min(n, c0 + cluster)):
+            keep = int(s * (0.2 + 0.75 * (i - c0) / max(1, cluster - 1)))
+            fresh = rng.integers(0, 2**64 - 1, s - keep, dtype=np.uint64)
+            row = np.unique(np.concatenate(
+                [rng.choice(center, keep, replace=False), fresh]))
+            while row.size < s:  # astronomically rare collision
+                row = np.unique(np.concatenate(
+                    [row, rng.integers(0, 2**64 - 1, 1, dtype=np.uint64)]))
+            out[i] = row[:s]
+    return out
+
+
+def write_genomes(rng, folder: str):
+    """N_GENOMES FASTA files: mutated copies of one random genome."""
+    import numpy as np
+
+    base = rng.integers(0, 4, GENOME_LEN).astype(np.uint8)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    paths = []
+    for i in range(N_GENOMES):
+        g = base.copy()
+        mut = rng.random(GENOME_LEN) < 0.05 * i / (N_GENOMES - 1)
+        g[mut] = (g[mut] + rng.integers(1, 4, int(mut.sum()))) % 4
+        seq = acgt[g]
+        seq[rng.random(GENOME_LEN) < 0.001] = ord("N")
+        lo = int(rng.integers(0, GENOME_LEN - 10000))
+        seq[lo : lo + 10000] += 32  # a lowercase stretch
+        lines = np.full((GENOME_LEN // 64, 65), ord("\n"), np.uint8)
+        lines[:, :64] = seq.reshape(-1, 64)
+        path = os.path.join(folder, "genome%02d.fa" % i)
+        with open(path, "wb") as f:
+            f.write(b">genome%02d synthetic mutation copy\n" % i)
+            f.write(lines.tobytes())
+        paths.append(path)
+    return paths
+
+
+# -- phases ---------------------------------------------------------------
+
+def phase_kernels(rng, report):
+    """Each kernel against its plain version at main-path shapes."""
+    import numpy as np
+    import torch
+
+    from mash_tpu_torch.core.engine import DEFAULT_CHUNK
+    from mash_tpu_torch.ops import distance, pairwise_kernel, sketch_kernel
+    from mash_tpu_torch.ops.sketch_ops import candidate_budget
+
+    dev = torch.device("cuda")
+    alphabet = tuple(b"ACGT")
+    length = DEFAULT_CHUNK
+    full = torch.from_numpy(random_chunks(rng, 32, length)).to(dev)
+    # each genome file is one batch of the chunks its windows need; a
+    # full 32-row batch (larger files) and k = 16 are off the main path
+    file_rows = -(-(GENOME_LEN - K + 1) // (length - K + 1))
+    for k, use64, rows, main in ((K, True, file_rows, True),
+                                 (K, True, 32, False), (16, False, 32, False)):
+        chunks = full[:rows].contiguous()
+        n = length - k + 1
+        m = candidate_budget(S, sketch_kernel.C, n)
+        kw = dict(alphabet=alphabet, k=k, seed=42, use64=use64,
+                  noncanonical=False, preserve_case=False)
+        got = sketch_kernel.sketch_select(chunks, **kw, m=m)
+        want = sketch_kernel.sketch_select_plain(chunks, **kw, m=m)
+        torch.cuda.synchronize()
+        err = max_abs_err(got, want)
+        require(err == 0.0, "sketch_select k=%d disagrees" % k)
+        fused = sketch_kernel.sketch_chunks_fused(chunks, **kw, s=S)
+        plain = sketch_kernel.sketch_chunks_plain(chunks, **kw, s=S)
+        require(torch.equal(fused[0], plain[0])
+                and torch.equal(fused[1], plain[1]),
+                "sketch_chunks_fused k=%d disagrees" % k)
+        ms = cuda_ms(lambda: sketch_kernel.sketch_select(chunks, **kw, m=m))
+        plain_ms = cuda_ms(
+            lambda: sketch_kernel.sketch_select_plain(chunks, **kw, m=m))
+        windows = rows * n
+        nbytes = rows * length + got[0].numel() * 8 + got[1].numel() * 8 \
+            + got[2].numel() * 4
+        nops = windows * (3 * k + murmur_ops(k) + 1)
+        bound_ms, bound_by = bound(nbytes, nops)
+        report.append(dict(
+            name="sketch_select", shape="[%d, %d] k=%d use64=%s m=%d"
+            % (rows, length, k, use64, m), max_abs_err=err, kernel_ms=ms,
+            plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=None, main=main))
+
+    def pairs(nq, nr, hq, hr, sq, sr, fn, plain_fn, name, width_bytes, main):
+        got = fn(hq, sq, hr, sr, cap=S)
+        want = plain_fn()
+        torch.cuda.synchronize()
+        err = max_abs_err(got, want)
+        require(err == 0.0, "%s %dx%d disagrees" % (name, nq, nr))
+        ms = cuda_ms(lambda: fn(hq, sq, hr, sr, cap=S))
+        plain_ms = cuda_ms(plain_fn)
+        nbytes = (nq + nr) * hq.shape[1] * width_bytes + (nq + nr) * 4 \
+            + 2 * nq * nr * 4
+        # a linear merge of each pair compares every element once
+        nops = nr * int(sq.sum()) + nq * int(sr.sum())
+        bound_ms, bound_by = bound(nbytes, nops)
+        report.append(dict(
+            name=name, shape="%d x %d, s=%d" % (nq, nr, S), max_abs_err=err,
+            kernel_ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+            bound_by=bound_by, library_ms=None, main=main))
+        return want
+
+    sk = overlap_sketches(rng, N_BIG, S)
+    H = torch.from_numpy(sk.view(np.int64)).to(dev)
+    sizes = torch.full((N_BIG,), S, dtype=torch.int32, device=dev)
+    small = H[:64].contiguous(), sizes[:64].contiguous()
+    pairs(64, 64, small[0], small[0], small[1], small[1],
+          pairwise_kernel.pairwise64,
+          lambda: distance.pairwise_common_denom(
+              small[0], small[1], small[0], small[1], cap=S),
+          "pairwise64", 8, True)
+    want64 = pairs(N_BIG, N_BIG, H, H, sizes, sizes,
+                   pairwise_kernel.pairwise64,
+                   lambda: distance.pairwise_common_denom(
+                       H, sizes, H, sizes, cap=S),
+                   "pairwise64", 8, False)
+    kq, kr = distance.rank_compress(H, H)
+    wq = pairwise_kernel.keys32_to_64(kq)
+    wr = pairwise_kernel.keys32_to_64(kr)
+    want32 = pairs(N_BIG, N_BIG, kq, kr, sizes, sizes,
+                   pairwise_kernel.pairwise32,
+                   lambda: distance.pairwise_common_denom(
+                       wq, sizes, wr, sizes, cap=S),
+                   "pairwise32", 4, True)
+    require(all(torch.equal(a, b) for a, b in zip(want64, want32)),
+            "rank_compress changed (common, denom)")
+    print("phase kernels: ok", flush=True)
+
+
+def phase_end_to_end(rng, folder, profile_device=False):
+    """sketch -> dist through the CLI, with every counter reset first."""
+    import numpy as np
+
+    from mash_tpu_torch.commands import command_registry
+    from mash_tpu_torch.core.params import default_nucleotide_params
+    from mash_tpu_torch.core.sketch import SketchRef
+    from mash_tpu_torch.io import capnp_msh
+    from mash_tpu_torch.ops import pairwise_kernel, sketch_kernel
+
+    t0 = time.perf_counter()
+    paths = write_genomes(rng, folder)
+    print("wrote %d genomes in %.1f s" % (len(paths),
+          time.perf_counter() - t0), flush=True)
+    params = default_nucleotide_params(K, S, 42)
+    big = overlap_sketches(rng, N_BIG, S)
+    refs = [SketchRef(name="s%04d" % i, comment="", length=4_000_000,
+                      hashes=big[i]) for i in range(N_BIG)]
+    big_msh = os.path.join(folder, "big.msh")
+    capnp_msh.write_msh(big_msh, params, refs)
+    sub_msh = os.path.join(folder, "sub.msh")
+    capnp_msh.write_msh(sub_msh, params, refs[:128])
+    all_msh = os.path.join(folder, "all.msh")
+    gpu = {"MASH_TPU_TORCH_DEVICE": "cuda"}
+
+    command_registry()  # import every command before the clocks start
+    counters = (sketch_kernel.LAUNCHES, pairwise_kernel.LAUNCHES)
+    for c in counters:
+        for name in c:
+            c[name] = 0
+
+    _, t_sketch = timed_cli(
+        "sketch", ["sketch", "-k", str(K), "-s", str(S), "-o", all_msh,
+                   *paths], gpu, profile_device)
+    bases = N_GENOMES * GENOME_LEN
+    require(sketch_kernel.LAUNCHES["sketch_select"] > 0,
+            "sketch did not launch sketch_select")
+    print("sketch: %d bases in %.3f s = %.4g bases/s"
+          % (bases, t_sketch, bases / t_sketch), flush=True)
+
+    out, t_dist = timed_cli("dist_4096", ["dist", all_msh, all_msh], gpu,
+                            profile_device)
+    require(pairwise_kernel.LAUNCHES["pairwise64"] > 0,
+            "dist of 4096 pairs did not launch pairwise64")
+    lines = out.splitlines()
+    require(len(lines) == N_GENOMES ** 2, "dist printed %d lines"
+            % len(lines))
+    diag = [ln.split("\t") for ln in lines[:: N_GENOMES + 1]]
+    require(all(f[0] == f[1] and f[2:] == ["0", "0", "%d/%d" % (S, S)]
+                for f in diag), "dist diagonal is not 0 0 %d/%d" % (S, S))
+    print("dist 4096 pairs in %.3f s; e.g. %s" % (t_dist, lines[1]),
+          flush=True)
+
+    big_out, t_big = timed_cli("dist_1M", ["dist", big_msh, big_msh], gpu,
+                               profile_device)
+    require(pairwise_kernel.LAUNCHES["pairwise32"] > 0,
+            "dist of 10^6 pairs did not launch pairwise32")
+    big_lines = big_out.splitlines()
+    require(len(big_lines) == N_BIG ** 2, "big dist printed %d lines"
+            % len(big_lines))
+    print("dist %d pairs in %.3f s = %.4g pairs/s"
+          % (N_BIG ** 2, t_big, N_BIG ** 2 / t_big), flush=True)
+    launches = {**sketch_kernel.LAUNCHES, **pairwise_kernel.LAUNCHES}
+    print("main-path launches: %s" % json.dumps(launches), flush=True)
+
+    # cross-checks against the CPU's plain path
+    cpu = {"MASH_TPU_TORCH_DEVICE": "cpu"}
+    two_gpu = os.path.join(folder, "two_gpu.msh")
+    two_cpu = os.path.join(folder, "two_cpu.msh")
+    run_cli(["sketch", "-o", two_gpu, *paths[:2]], gpu)
+    run_cli(["sketch", "-o", two_cpu, *paths[:2]], cpu)
+    with open(two_gpu, "rb") as a, open(two_cpu, "rb") as b:
+        require(a.read() == b.read(), "GPU and CPU .msh bytes differ")
+    sub_out = run_cli(["dist", sub_msh, sub_msh], cpu).splitlines()
+    block = [big_lines[i * N_BIG + j] for i in range(128)
+             for j in range(128)]
+    require(sub_out == block, "128 x 128 block differs from the CPU's")
+    msh = capnp_msh.read_msh(all_msh)
+    require(len(msh.references) == N_GENOMES
+            and all(len(r.hashes) == S
+                    and np.all(r.hashes[1:] > r.hashes[:-1])
+                    for r in msh.references),
+            "all.msh does not hold %d sorted sketches of %d" % (N_GENOMES, S))
+    print("phase end to end: ok", flush=True)
+    return launches
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--profile", action="store_true",
+                    help="also measure each main-path command's device "
+                    "busy share with torch.profiler")
+    args = ap.parse_args(argv)
+
+    if not os.path.isdir(os.path.join(ROOT, "mash_tpu_torch")):
+        raise SmokeError("run chip_smoke.py from a checkout of the "
+                         "repository (mash_tpu_torch/ is missing)")
+    sys.path.insert(0, ROOT)
+    # stage timings are switched on when the package is first imported
+    os.environ["MASH_TPU_TORCH_TIMINGS"] = "1"
+    import numpy as np
+    import torch
+
+    # phase 1: device
+    require(torch.cuda.is_available(), "no CUDA device")
+    kind = torch.cuda.get_device_name(0)
+    smi = nvidia_smi_line()
+    print("device: %s | %s | torch %s, CUDA %s" % (
+        kind, smi, torch.__version__, torch.version.cuda), flush=True)
+
+    # phase 2: build
+    from mash_tpu_torch import native
+    from mash_tpu_torch.ops import cuda_build
+
+    t0 = time.perf_counter()
+    cuda_build.build(["sketch_select", "pairwise"])
+    require(native.load_library() is not None, "native library build")
+    print("phase build: ok in %.1f s" % (time.perf_counter() - t0),
+          flush=True)
+
+    rng = np.random.default_rng(args.seed)
+    report = []
+    phase_kernels(rng, report)
+    with tempfile.TemporaryDirectory(prefix="mash_smoke_") as folder:
+        launches = phase_end_to_end(rng, folder, args.profile)
+
+    sources = {
+        "sketch_select": ("mash_tpu_torch/ops/csrc/sketch_select.cu",
+                          "mash_tpu/ops/pallas_sketch.py:224"),
+        "pairwise64": ("mash_tpu_torch/ops/csrc/pairwise.cu",
+                       "mash_tpu/ops/pallas_pairwise.py:63"),
+        "pairwise32": ("mash_tpu_torch/ops/csrc/pairwise.cu",
+                       "mash_tpu/ops/pallas_pairwise.py:137"),
+    }
+    kernels = []
+    for r in report:
+        print(json.dumps({**{k: v for k, v in r.items() if k != "main"},
+                          "launches": launches[r["name"]]}), flush=True)
+        if r["main"]:
+            src, rep = sources[r["name"]]
+            kernels.append(dict(
+                name=r["name"], route="cuda", source=src, replaces=rep,
+                launches=launches[r["name"]], max_abs_err=r["max_abs_err"],
+                ms=r["kernel_ms"], plain_ms=r["plain_ms"],
+                bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+                library_ms=r["library_ms"]))
+    require(sorted(k["name"] for k in kernels) == sorted(sources),
+            "kernel summary incomplete")
+    print(smi)
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    try:
+        code = main()
+    except Exception as e:  # every phase's failure ends the run
+        import traceback
+
+        traceback.print_exc()
+        sys.stderr.write("chip_smoke: FAILED: %s\n" % e)
+        code = 1
+    sys.stdout.flush()
+    raise SystemExit(code)

@@ -1,0 +1,286 @@
+"""Batched sorted-sketch intersection.
+
+The counterpart of ``mash_tpu.ops.distance``.  The reference compares
+two sketches with a sequential merge walk capped at ``sketchSize`` union
+elements (``src/mash/CommandDistance.cpp:336-425``).  The equivalent
+order-free formulation used here: with A, B the two sorted distinct hash
+lists and U their sorted union,
+
+  denom  = min(sketchSize, |U|)
+  common = |{x in A ∩ B : rank_U(x) <= denom}|
+
+because the walk consumes exactly one union element per step, counts a
+match only when both cursors advance, and stops after ``sketchSize``
+steps or when either list is exhausted.
+
+Sketch rows are int64 bit patterns padded to a common width with the
+EMPTY sentinel (2^64-1).  :func:`pairwise_common_denom` is the plain
+version (a sort of each pair's concatenated rows, as in ``mash_tpu``);
+on CUDA tensors :func:`pairwise_common_denom_auto` runs the hand-written
+kernels of ``ops.pairwise_kernel``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from mash_tpu_torch.ops.sketch_ops import EMPTY, biased
+from mash_tpu_torch.utils import stage
+
+_EMPTY_B = 2**63 - 1  # biased(EMPTY)
+_EMPTY_U64 = np.uint64(0xFFFFFFFFFFFFFFFF)
+
+
+def pad_sketches(hash_lists, width: int) -> tuple:
+    """Stack variable-length sorted hash arrays into [N, width] + sizes."""
+    n = len(hash_lists)
+    out = np.full((n, width), _EMPTY_U64, dtype=np.uint64)
+    sizes = np.zeros((n,), dtype=np.int32)
+    for i, h in enumerate(hash_lists):
+        m = min(len(h), width)
+        out[i, :m] = h[:m]
+        sizes[i] = m
+    return out, sizes
+
+
+def pairwise_common_denom(qry, nqry, ref, nref, *, cap: int,
+                          max_elems: int = 1 << 24):
+    """All-pairs (common, denom) between two sketch matrices.
+
+    Every pair's two sorted rows are concatenated and sorted; matches are
+    equal neighbours (EMPTY excluded) and the union-size cap is applied
+    through each match's union rank (``rank = position + 1 -
+    matches_before``), as in ``mash_tpu.ops.distance``.  Pairs are taken
+    in chunks of at most ``max_elems`` merged elements to bound memory.
+
+    Args:
+      qry: int64 ``[NQ, s]`` sorted ascending (unsigned), EMPTY-padded.
+      nqry: int ``[NQ]`` real sizes.
+      ref: int64 ``[NR, s]``.
+      nref: int ``[NR]``.
+      cap: the reference's ``sketchSize`` denominator cap
+        (min of the two sketch targets, ``CommandDistance.cpp:313-315``).
+
+    Returns:
+      (common, denom) int32 tensors of shape ``[NQ, NR]``.
+    """
+    nq, s = qry.shape
+    nr = ref.shape[0]
+    dev = qry.device
+    common = torch.zeros((nq, nr), dtype=torch.int32, device=dev)
+    denom = torch.zeros((nq, nr), dtype=torch.int32, device=dev)
+    if nq == 0 or nr == 0:
+        return common, denom
+    qb = biased(qry)
+    rb = biased(ref)
+    na = nqry.long()
+    nb = nref.long()
+    t = torch.arange(1, 2 * s, device=dev)  # position + 1 of x[:, :-1]
+    chunk = max(1, max_elems // (2 * s))
+    for p0 in range(0, nq * nr, chunk):
+        p = torch.arange(p0, min(nq * nr, p0 + chunk), device=dev)
+        qi = p // nr
+        ri = p % nr
+        x = torch.sort(torch.cat([qb[qi], rb[ri]], dim=1), dim=1).values
+        eq = (x[:, 1:] == x[:, :-1]) & (x[:, 1:] != _EMPTY_B)
+        e = eq.long()
+        total = e.sum(dim=1)
+        d = torch.clamp(na[qi] + nb[ri] - total, max=cap)
+        rank = t - (torch.cumsum(e, dim=1) - e)
+        c = (eq & (rank <= d[:, None])).sum(dim=1)
+        common.view(-1)[p] = c.int()
+        denom.view(-1)[p] = d.int()
+    return common, denom
+
+
+# Rank-compress 64-bit inputs above this many pairs (the reference's
+# threshold, ``mash_tpu/ops/distance.py``): two sorts of (NQ+NR)*s
+# elements buy the one-plane kernel for every pair.
+RANK_COMPRESS_MIN_PAIRS = 65536
+
+
+def pairwise_common_denom_auto(qry, nqry, ref, nref, *, cap: int,
+                               use64: bool = True):
+    """Device-dispatched all-pairs (common, denom).
+
+    On CUDA: 64-bit hashes with at least ``RANK_COMPRESS_MIN_PAIRS``
+    pairs are mapped to uint32 rank keys (:func:`rank_compress`, exact by
+    construction) for the 32-bit kernel; fewer pairs take the 64-bit
+    kernel; 32-bit hashes (k <= 16) go to the 32-bit kernel directly.
+    On the CPU: the plain :func:`pairwise_common_denom`.
+    """
+    if qry.device.type != "cuda":
+        return pairwise_common_denom(qry, nqry, ref, nref, cap=cap)
+    from mash_tpu_torch.ops.pairwise_kernel import pairwise32, pairwise64
+
+    if use64 and qry.shape[0] * ref.shape[0] >= RANK_COMPRESS_MIN_PAIRS:
+        kq, kr = rank_compress(qry, ref)
+        return pairwise32(kq, nqry, kr, nref, cap=cap)
+    if use64:
+        return pairwise64(qry, nqry, ref, nref, cap=cap)
+    # 32-bit hashes: the low word carries the value, and EMPTY's low
+    # word is the 32-bit sentinel
+    return pairwise32(qry.to(torch.int32), nqry, ref.to(torch.int32), nref,
+                      cap=cap)
+
+
+def rank_compress(Hq: torch.Tensor, Hr: torch.Tensor):
+    """Map two int64 sketch matrices to order/equality-preserving
+    uint32 rank keys (as int32 bit patterns).
+
+    Dense ranking in unsigned order — sort all values once, number the
+    distinct values in order, scatter the ranks back — gives keys with
+    identical comparison results, so every pair runs the 32-bit kernel.
+    EMPTY pads map to the 0xFFFFFFFF sentinel (int32 -1) that the 32-bit
+    kernel excludes.
+    """
+    flat = torch.cat([Hq.reshape(-1), Hr.reshape(-1)])
+    if flat.numel() >= 2**31:
+        raise ValueError("too many hashes to rank in 32 bits")
+    sv, si = torch.sort(biased(flat))
+    is_new = torch.ones_like(sv, dtype=torch.bool)
+    is_new[1:] = sv[1:] != sv[:-1]
+    ranks = torch.empty_like(flat)
+    ranks[si] = torch.cumsum(is_new, dim=0) - 1
+    keys = torch.where(flat == EMPTY, torch.full_like(ranks, -1), ranks)
+    keys = keys.to(torch.int32)
+    n = Hq.numel()
+    return keys[:n].view(Hq.shape), keys[n:].view(Hr.shape)
+
+
+def _pad_rows_np(arr, mult, fill):
+    """Pad ``arr`` along axis 0 to a multiple of ``mult`` with ``fill``."""
+    n = arr.shape[0]
+    m = ((n + mult - 1) // mult) * mult
+    if m == n:
+        return arr
+    pad = np.full((m - n,) + arr.shape[1:], fill, dtype=arr.dtype)
+    return np.concatenate([arr, pad], axis=0)
+
+
+def _upload(hashes: np.ndarray, sizes: np.ndarray, device):
+    """Host uint64 rows + sizes -> int64 / int32 tensors on ``device``."""
+    h = torch.from_numpy(np.ascontiguousarray(hashes).view(np.int64))
+    n = torch.from_numpy(np.ascontiguousarray(sizes, dtype=np.int32))
+    return h.to(device), n.to(device)
+
+
+def stream_pair_stripes(
+    qry_h,
+    qry_n,
+    ref_h,
+    ref_n,
+    cap: int,
+    device,
+    use64: bool = True,
+    row_block: int | None = None,
+    tile_r: int | None = None,
+):
+    """Yield ``(i0, stripe)`` row stripes of packed ``common | denom<<16``.
+
+    ``stripe`` is uint32 ``[rows, NR]`` for query rows ``[i0, i0+rows)``,
+    so the full ``[NQ, NR]`` matrices never exist on the host at once
+    (the reference's streamed pair blocks,
+    ``src/mash/CommandDistance.cpp:196-236``).  On CUDA, 64-bit hashes
+    are rank-compressed once so every tile runs the 32-bit kernel.  When
+    every sketch is full, every real cell's denominator is ``cap``, so
+    only ``common`` leaves the device, as uint16.  Each stripe is
+    computed and read back before the next starts.  Requires
+    ``cap < 65536``.
+    """
+    if cap >= 65536:
+        raise ValueError("packed stripes need cap < 65536")
+    device = torch.device(device)
+    big = device.type == "cuda"
+    row_block = row_block or (512 if big else 32)
+    tile_r = tile_r or (4096 if big else 128)
+    nq = qry_h.shape[0]
+    nr = ref_h.shape[0]
+    Hq, Nq = _upload(_pad_rows_np(qry_h, row_block, _EMPTY_U64),
+                     _pad_rows_np(qry_n, row_block, 0), device)
+    Hr, Nr = _upload(_pad_rows_np(ref_h, tile_r, _EMPTY_U64),
+                     _pad_rows_np(ref_n, tile_r, 0), device)
+    ranked = use64 and big
+    if ranked:
+        Hq, Hr = rank_compress(Hq, Hr)
+    common_only = bool(np.all(np.asarray(qry_n) >= cap)) and bool(
+        np.all(np.asarray(ref_n) >= cap)
+    )
+
+    def tile(i0, ri):
+        args = (Hq[i0 : i0 + row_block], Nq[i0 : i0 + row_block],
+                Hr[ri : ri + tile_r], Nr[ri : ri + tile_r])
+        # rank keys are 32-bit, so the tile never ranks again
+        c, d = pairwise_common_denom_auto(*args, cap=cap,
+                                          use64=use64 and not ranked)
+        if common_only:
+            return c.to(torch.int16).cpu().numpy().view(np.uint16)
+        packed = c.long() | (d.long() << 16)
+        return packed.to(torch.int32).cpu().numpy().view(np.uint32)
+
+    for i0 in range(0, nq, row_block):
+        rows = min(row_block, nq - i0)
+        with stage("distance:stripe"):
+            stripe = np.concatenate(
+                [tile(i0, ri) for ri in range(0, nr, tile_r)], axis=1
+            )[:rows, :nr]
+        if common_only:
+            stripe = stripe.astype(np.uint32) | (np.uint32(cap) << 16)
+        yield i0, stripe
+
+
+def common_denom_tiled(
+    qry_h,
+    qry_n,
+    ref_h,
+    ref_n,
+    cap: int,
+    device,
+    tile_q: int | None = None,
+    tile_r: int | None = None,
+    use64: bool = True,
+):
+    """Host-tiled all-pairs (common, denom) bounding device memory.
+
+    Pads both sketch sets to tile multiples and loops over tiles; tile
+    sizes default to 4096 on CUDA (the kernels grid over a whole tile)
+    and 128 on the CPU.  Returns numpy int32 ``[NQ, NR]`` arrays.
+    """
+    nq = qry_h.shape[0]
+    nr = ref_h.shape[0]
+    common = np.zeros((nq, nr), dtype=np.int32)
+    denom = np.zeros((nq, nr), dtype=np.int32)
+    if nq == 0 or nr == 0:
+        return common, denom
+    device = torch.device(device)
+    big = device.type == "cuda"
+    tile_q = tile_q or (4096 if big else 128)
+    tile_r = tile_r or (4096 if big else 128)
+    # never pad a small input all the way up to a huge tile
+    tile_q = min(tile_q, 8 * ((nq + 7) // 8))
+    tile_r = min(tile_r, 8 * ((nr + 7) // 8))
+
+    qh = _pad_rows_np(qry_h, tile_q, _EMPTY_U64)
+    qn = _pad_rows_np(qry_n, tile_q, 0)
+    rh = _pad_rows_np(ref_h, tile_r, _EMPTY_U64)
+    rn = _pad_rows_np(ref_n, tile_r, 0)
+    for qi in range(0, qh.shape[0], tile_q):
+        q, n_q = _upload(qh[qi : qi + tile_q], qn[qi : qi + tile_q], device)
+        for ri in range(0, rh.shape[0], tile_r):
+            with stage("distance:pair_tile"):
+                r, n_r = _upload(rh[ri : ri + tile_r],
+                                 rn[ri : ri + tile_r], device)
+                c, d = pairwise_common_denom_auto(
+                    q, n_q, r, n_r, cap=cap, use64=use64
+                )
+                cq = min(tile_q, nq - qi)
+                cr = min(tile_r, nr - ri)
+                if cq > 0 and cr > 0:
+                    common[qi : qi + cq, ri : ri + cr] = (
+                        c[:cq, :cr].cpu().numpy()
+                    )
+                    denom[qi : qi + cq, ri : ri + cr] = (
+                        d[:cq, :cr].cpu().numpy()
+                    )
+    return common, denom

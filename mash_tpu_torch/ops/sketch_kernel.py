@@ -1,0 +1,226 @@
+"""Sketch kernel: sequence bytes -> bottom-s states, fused on the GPU.
+
+The counterpart of ``mash_tpu.ops.pallas_sketch``.  The kernel
+``csrc/sketch_select.cu`` hashes every window of a chunk batch and, for
+each C-window subrow, returns its m smallest hashes, the (m+1)-th as a
+boundary, and its valid-window count, so the full hash array never
+reaches device memory.  :func:`sketch_chunks_fused` folds those
+candidates to bottom-s and checks an exactness certificate on the full
+64-bit boundary for each row; a row that fails it is recomputed on the
+plain path, on the same device.
+
+:func:`sketch_select` launches the kernel for a CUDA tensor and runs its
+plain version, :func:`sketch_select_plain`, for a CPU tensor, so the CPU
+tests cover everything around the kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from mash_tpu_torch.ops import cuda_build
+from mash_tpu_torch.ops.kmers import alphabet_lut, complement_lut, hash_chunk
+from mash_tpu_torch.ops.sketch_ops import (
+    EMPTY,
+    _fold_sorted,
+    biased,
+    candidate_budget,
+    sketch_chunk,
+    sketch_chunk_batch,
+    sort_unsigned,
+)
+
+C = 2048  # windows per subrow: one CUDA block
+_MAX_K = 32  # the kernel's KMAX (its shared-memory halo)
+
+# Kernel launches in this process (read and reset by chip_smoke.py).
+LAUNCHES = {"sketch_select": 0}
+
+
+def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def _bind(lib):
+    fn = lib.sketch_select_launch
+    if fn.argtypes is None:
+        p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+        fn.argtypes = [p, i64, i64, p, p, i32, ctypes.c_uint32, i32, i32,
+                       i32, i32, p, p, p, p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _check_chunks(chunks: torch.Tensor, k: int, m: int) -> None:
+    if chunks.dtype != torch.uint8 or chunks.dim() != 2:
+        raise ValueError("chunks must be a uint8 [B, L] tensor")
+    if not chunks.is_contiguous():
+        raise ValueError("chunks must be contiguous")
+    if chunks.shape[1] < k:
+        raise ValueError("chunks are shorter than k")
+    if not 1 <= m < C:
+        raise ValueError("candidate budget m=%d outside [1, %d)" % (m, C))
+
+
+def sketch_select(
+    chunks: torch.Tensor,
+    *,
+    alphabet: tuple,
+    k: int,
+    seed: int,
+    use64: bool,
+    noncanonical: bool,
+    preserve_case: bool,
+    m: int,
+):
+    """Per-subrow bottom-m candidates of a ``[B, L]`` chunk batch.
+
+    Returns ``(cand [B*R, m] int64, boundary [B*R] int64, vcount [B*R]
+    int32)`` with ``R = ceil((L-k+1) / C)``: each subrow's m smallest
+    window hashes in unsigned order (invalid windows count as EMPTY),
+    its (m+1)-th smallest, and its number of valid windows.
+    """
+    _check_chunks(chunks, k, m)
+    kw = dict(alphabet=alphabet, k=k, seed=seed, use64=use64,
+              noncanonical=noncanonical, preserve_case=preserve_case, m=m)
+    if chunks.device.type == "cpu":
+        return sketch_select_plain(chunks, **kw)
+    if chunks.device.type != "cuda":
+        raise ValueError("sketch_select runs on cuda or cpu tensors")
+    B, L = chunks.shape
+    R = (L - k + 1 + C - 1) // C
+    dev = chunks.device
+    cand = torch.empty((B * R, m), dtype=torch.int64, device=dev)
+    boundary = torch.empty((B * R,), dtype=torch.int64, device=dev)
+    vcount = torch.empty((B * R,), dtype=torch.int32, device=dev)
+    alut = alphabet_lut(alphabet)
+    clut = complement_lut(alphabet)
+    fn = _bind(cuda_build.load("sketch_select"))
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        status = fn(
+            _ptr(chunks), B, L,
+            alut.ctypes.data_as(ctypes.c_void_p),
+            clut.ctypes.data_as(ctypes.c_void_p),
+            k, seed, int(use64), int(noncanonical), int(preserve_case), m,
+            _ptr(cand), _ptr(boundary), _ptr(vcount),
+            ctypes.c_void_p(stream),
+        )
+    cuda_build.check(status, "sketch_select")
+    LAUNCHES["sketch_select"] += 1
+    return cand, boundary, vcount
+
+
+def sketch_select_plain(
+    chunks: torch.Tensor,
+    *,
+    alphabet: tuple,
+    k: int,
+    seed: int,
+    use64: bool,
+    noncanonical: bool,
+    preserve_case: bool,
+    m: int,
+):
+    """Plain PyTorch version of :func:`sketch_select` (same outputs)."""
+    B, L = chunks.shape
+    n = L - k + 1
+    R = (n + C - 1) // C
+    h, v = hash_chunk(chunks, alphabet=alphabet, k=k, seed=seed,
+                      use64=use64, noncanonical=noncanonical,
+                      preserve_case=preserve_case)
+    key = torch.where(v, h, torch.full_like(h, EMPTY))
+    pad = R * C - n
+    if pad:
+        key = torch.cat([key, torch.full((B, pad), EMPTY, dtype=key.dtype,
+                                         device=key.device)], dim=1)
+        v = torch.cat([v, torch.zeros((B, pad), dtype=torch.bool,
+                                      device=v.device)], dim=1)
+    # biased() is its own inverse: sort in unsigned order, then unbias
+    key = biased(torch.sort(biased(key.view(B * R, C)), dim=1).values)
+    vcount = v.view(B * R, C).sum(dim=1, dtype=torch.int32)
+    return key[:, :m].contiguous(), key[:, m].contiguous(), vcount
+
+
+def sketch_chunks_plain(chunks, *, alphabet, k, seed, use64, noncanonical,
+                        preserve_case, s):
+    """``hash_chunk`` + ``sketch_chunk_batch``: the plain bytes -> states."""
+    h, v = hash_chunk(chunks, alphabet=alphabet, k=k, seed=seed,
+                      use64=use64, noncanonical=noncanonical,
+                      preserve_case=preserve_case)
+    return sketch_chunk_batch(h, v, s=s, use64=use64)
+
+
+def sketch_chunks_fused(
+    chunks: torch.Tensor,
+    *,
+    alphabet: tuple,
+    k: int,
+    seed: int,
+    use64: bool,
+    noncanonical: bool,
+    preserve_case: bool,
+    s: int,
+):
+    """Bytes -> bottom-s states ``(H [B, s], C [B, s])`` via
+    :func:`sketch_select`.
+
+    Semantically identical to ``hash_chunk`` + ``sketch_chunk``: the
+    candidates are folded, then a per-row certificate proves them
+    complete, else that row is recomputed with a full sort.
+    """
+    B, L = chunks.shape
+    n = L - k + 1
+
+    def plain(rows):
+        h, v = hash_chunk(rows, alphabet=alphabet, k=k, seed=seed,
+                          use64=use64, noncanonical=noncanonical,
+                          preserve_case=preserve_case)
+        return sketch_chunk(h, v, s=s)
+
+    if n <= 8 * C or s * 8 > n or k > _MAX_K:
+        return plain(chunks)
+    m = candidate_budget(s, C, n)
+    if m >= C:  # the kernel keeps at most C - 1 candidates per subrow
+        return plain(chunks)
+
+    cand, boundary, vcount = sketch_select(
+        chunks, alphabet=alphabet, k=k, seed=seed, use64=use64,
+        noncanonical=noncanonical, preserve_case=preserve_case, m=m,
+    )
+    R = cand.shape[0] // B
+    ch = cand.view(B, R * m)
+    cand_v = ch != EMPTY
+    ch, cc = sort_unsigned(ch, cand_v.long())
+    Hf, Cf = _fold_sorted(ch, cc, s)
+
+    # Certificate: a hash not extracted from its subrow is >= that
+    # subrow's boundary, so X (the s-th kept value) strictly below every
+    # boundary proves every occurrence <= X was captured; equal valid
+    # counts prove the all-captured case.
+    ndist = (Cf > 0).sum(dim=1)
+    minb = biased(boundary.view(B, R)).min(dim=1).values
+    covered = (ndist >= s) & (biased(Hf[:, s - 1]) < minb)
+    all_in = vcount.view(B, R).sum(dim=1) == cand_v.sum(dim=1)
+    bad = (~(covered | all_in)).nonzero().squeeze(1)
+    if bad.numel():
+        # Only the rows without a certificate are recomputed.  A file's
+        # short tail row (fewer valid windows than s, more than m in a
+        # subrow) is the usual one; the rest of its batch stays exact.
+        Hf[bad], Cf[bad] = plain(chunks[bad])
+    return Hf, Cf
+
+
+def sketch_chunks_auto(chunks: torch.Tensor, **kw):
+    """Device-dispatched bytes -> bottom-s states for ``[B, L]`` chunks.
+
+    CUDA: the sketch kernel (:func:`sketch_chunks_fused`).  CPU: the
+    plain ``hash_chunk`` + ``sketch_chunk_batch``.
+    """
+    if chunks.device.type == "cuda":
+        return sketch_chunks_fused(chunks, **kw)
+    if chunks.device.type == "cpu":
+        return sketch_chunks_plain(chunks, **kw)
+    raise ValueError("unsupported device %s" % chunks.device)

@@ -1,0 +1,218 @@
+"""Bottom-s MinHash selection as sort/fold programs on tensors.
+
+The counterpart of ``mash_tpu.ops.sketch_ops``.  The reference keeps the
+s smallest *distinct* k-mer hashes (with multiplicities) in a heap +
+hash map (``src/mash/MinHashHeap.cpp:68-146``).  Selecting the bottom s
+distinct values is associative and commutative, so here it becomes:
+
+  per chunk:     sort -> run-detect -> first s distinct (+ summed counts)
+  across chunks: merge two states by concat -> sort -> re-dedupe
+
+Counts are total occurrence counts of each surviving hash
+(order-independent), exactly as in ``mash_tpu``.
+
+State representation: ``(hashes[s], counts[s])``, both int64.  Hashes
+are uint64 bit patterns sorted in *unsigned* order; empty slots have
+``counts == 0`` and hash ``EMPTY`` (2^64-1, i.e. int64 -1).  A real hash
+equal to EMPTY is still tracked correctly because emptiness is defined
+by ``counts == 0``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+EMPTY = -1  # 2^64-1 as an int64 bit pattern
+SIGN = -(2**63)  # XOR with this maps unsigned order onto signed order
+
+
+def biased(x: torch.Tensor) -> torch.Tensor:
+    """int64 bit patterns -> int64 whose signed order is unsigned order."""
+    return x ^ SIGN
+
+
+def sort_unsigned(h: torch.Tensor, c: torch.Tensor, dim: int = -1):
+    """Sort ``(h, c)`` along ``dim`` by h in unsigned order."""
+    _, order = torch.sort(biased(h), dim=dim)
+    return h.gather(dim, order), c.gather(dim, order)
+
+
+def empty_state(s: int, device="cpu"):
+    """An empty bottom-s sketch state."""
+    return (
+        torch.full((s,), EMPTY, dtype=torch.int64, device=device),
+        torch.zeros((s,), dtype=torch.int64, device=device),
+    )
+
+
+def _fold_sorted(hs: torch.Tensor, cs: torch.Tensor, s: int):
+    """Bottom-s distinct (+summed counts) of unsigned-ascending rows.
+
+    Args:
+      hs: int64 ``[..., L]`` ascending in unsigned order; entries with
+        ``cs == 0`` are ignored (they must have been mapped to ``EMPTY``
+        so they sort last).
+      cs: int64 ``[..., L]`` counts aligned with ``hs``.
+      s: sketch size.
+
+    Returns:
+      ``(H[..., s], C[..., s])`` states.
+    """
+    L = hs.shape[-1]
+    is_new = torch.ones_like(hs, dtype=torch.bool)
+    is_new[..., 1:] = hs[..., 1:] != hs[..., :-1]
+    run = torch.cumsum(is_new, dim=-1) - 1  # run index of each element
+    width = max(L, s)
+    shape = hs.shape[:-1] + (width,)
+    C = torch.zeros(shape, dtype=torch.int64, device=hs.device)
+    C.scatter_add_(-1, run, cs)
+    H = torch.full(shape, EMPTY, dtype=torch.int64, device=hs.device)
+    # every element of a run holds the same value: any writer wins
+    H.scatter_(-1, run, hs)
+    H = H[..., :s]
+    C = C[..., :s]
+    H = torch.where(C > 0, H, torch.full_like(H, EMPTY))
+    return H, C.clamp(min=0)
+
+
+def sketch_chunk(hashes: torch.Tensor, valid: torch.Tensor, *, s: int):
+    """Bottom-s distinct hashes (+occurrence counts) of hashed chunks.
+
+    Args:
+      hashes: int64 ``[..., n]`` window hashes (``ops.kmers.hash_chunk``).
+      valid: bool ``[..., n]`` window validity mask.
+      s: sketch size.
+    """
+    h = torch.where(valid, hashes, torch.full_like(hashes, EMPTY))
+    h, c = sort_unsigned(h, valid.long())
+    return _fold_sorted(h, c, s)
+
+
+def candidate_budget(s: int, C: int, n: int) -> int:
+    """Per-subrow candidate budget m for hierarchical bottom-s selection.
+
+    With uniform hashes, a C-wide subrow of an n-window chunk holds
+    Poisson(~1.2*s*C/n) of the globally relevant bottom hashes; a floor
+    of 16 plus 6 lambdas of headroom makes an overflow (-> verified
+    fallback) vanishingly rare while keeping the per-subrow selection
+    tiny.  Shared by the plain fold and the sketch kernel's caller.
+    """
+    lam = max(1.0, 1.2 * s * C / n)
+    m = 16
+    while m < 6 * lam:
+        m *= 2
+    return m
+
+
+def sketch_chunk_batch(
+    hashes: torch.Tensor, valid: torch.Tensor, *, s: int, use64: bool = True
+):
+    """Exact bottom-s fold of ``[B, n]`` hashed chunks, top-k windowed.
+
+    Semantically identical to ``sketch_chunk`` row by row: each row is
+    split into C-wide subrows, ``torch.topk`` takes the m smallest keys
+    (the high 32 hash bits, or the hash itself in 32-bit mode) of each,
+    and only those candidates are sorted and folded.  A per-row
+    exactness certificate is checked on the full 64-bit values; if any
+    row fails, the whole batch takes the full-sort path — same result.
+
+    Returns ``(H [B, s], C [B, s])`` stacked states.
+    """
+    B, n = hashes.shape
+    C = 2048  # subrow width
+    if n <= 16 * C or s * 8 > n:
+        return sketch_chunk(hashes, valid, s=s)
+
+    m = min(candidate_budget(s, C, n), C)
+    R = (n + C - 1) // C
+
+    # selection keys (values in [0, 2^32]); invalid windows get
+    # 0xFFFFFFFF and subrow padding 2^32, so padding is picked last
+    key = _shr32(hashes) if use64 else hashes
+    key = torch.where(valid, key, torch.full_like(key, 0xFFFFFFFF))
+    if R * C != n:
+        pad = torch.full((B, R * C - n), 1 << 32, dtype=key.dtype,
+                         device=key.device)
+        key = torch.cat([key, pad], dim=1)
+    _, li = torch.topk(key.view(B * R, C), m, dim=1, largest=False)
+    base = torch.arange(R, device=key.device)[:, None] * C
+    idx = (li.view(B, R, m) + base).view(B, R * m)
+    # Pad-region picks clamp onto position n-1 and MUST be masked out:
+    # a clamped duplicate of a valid element would otherwise corrupt
+    # counts and could satisfy the all-captured certificate spuriously.
+    is_real = idx < n
+    idx = idx.clamp(max=n - 1)
+
+    cand_h = hashes.gather(1, idx)
+    cand_v = valid.gather(1, idx) & is_real
+    ch = torch.where(cand_v, cand_h, torch.full_like(cand_h, EMPTY))
+    ch, cc = sort_unsigned(ch, cand_v.long())
+    Hf, Cf = _fold_sorted(ch, cc, s)
+
+    # Exactness proof per row:
+    #  (a) every valid element is in the window, or
+    #  (b) the fold yielded >= s distinct values AND the number of valid
+    #      occurrences <= X (the s-th kept distinct) in the window equals
+    #      that in the whole chunk — no occurrence of any value <= X was
+    #      missed, so both the kept hash set and its counts are complete.
+    ndist = (Cf > 0).sum(dim=1)
+    x = biased(Hf[:, s - 1 : s])
+    full_cnt = (valid & (biased(hashes) <= x)).sum(dim=1)
+    win_cnt = (cand_v & (biased(cand_h) <= x)).sum(dim=1)
+    covered = (ndist >= s) & (win_cnt == full_cnt)
+    all_valid_in = cand_v.sum(dim=1) == valid.sum(dim=1)
+    if bool((covered | all_valid_in).all()):
+        return Hf, Cf
+    return sketch_chunk(hashes, valid, s=s)
+
+
+def _shr32(x: torch.Tensor) -> torch.Tensor:
+    """High 32 bits of int64 bit patterns, as values in [0, 2^32)."""
+    return (x >> 32) & 0xFFFFFFFF
+
+
+def merge_states(state_a, state_b, *, s: int):
+    """Merge two bottom-s states (associative + commutative)."""
+    h = torch.cat([state_a[0], state_b[0]])
+    c = torch.cat([state_a[1], state_b[1]])
+    h, c = sort_unsigned(h, c)
+    return _fold_sorted(h, c, s)
+
+
+def tree_merge(states_h: torch.Tensor, states_c: torch.Tensor, *, s: int):
+    """Merge ``[B, s]`` stacked states into one state (one concat+sort)."""
+    h, c = sort_unsigned(states_h.reshape(-1), states_c.reshape(-1))
+    return _fold_sorted(h, c, s)
+
+
+def state_stats(state):
+    """(size, max_hash, multiplicity_sum) of a state, as host scalars.
+
+    Mirrors the quantities behind the reference's estimators
+    (``MinHashHeap.h:44-45``): ``size`` = heap fill, ``max_hash`` = heap
+    top (as an unsigned int), ``multiplicity_sum`` = sum of counts.
+    """
+    h, c = state
+    size = int((c > 0).sum())
+    if size == 0:
+        return 0, 0, 0
+    mx = int(h[size - 1]) & ((1 << 64) - 1)
+    msum = int(c.sum())
+    return size, mx, msum
+
+
+def estimate_set_size(state, use64: bool = True) -> float:
+    """Distinct-element cardinality estimate (``MinHashHeap.h:45``)."""
+    size, mx, _ = state_stats(state)
+    if size == 0:
+        return 0.0
+    bits = 64.0 if use64 else 32.0
+    return (2.0 ** bits) * size / float(mx)
+
+
+def estimate_multiplicity(state) -> float:
+    """Average k-mer multiplicity estimate (``MinHashHeap.h:44``)."""
+    size, _, msum = state_stats(state)
+    if size == 0:
+        return 0.0
+    return msum / size
