@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
-"""Smoke test of mash_tpu_torch's main path (sketch -> dist) on one GPU.
+"""Smoke test of mash_tpu_torch on one GPU: sketch -> dist, then screen.
 
 Run from the root of a checkout on a machine with an NVIDIA H100 and the
 CUDA toolkit:
 
-    python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py [--seed N] [--profile]
 
 Phases (any failure exits non-zero before the result lines):
 
@@ -14,18 +14,29 @@ Phases (any failure exits non-zero before the result lines):
 3. kernels: each kernel at the main path's shapes against its plain
    PyTorch version on the same inputs (exact equality: every output is an
    integer), timed with CUDA events (median of 7 after one warm-up);
+   ``screen_count`` at one ``screen`` flush against 10^7 DB hashes and
+   against 1.1e5, and the plain work around it (hash pass, cardinality
+   fold, flush sort) at the screen path's shapes;
 4. end to end through ``mash_tpu_torch.__main__.main``: ``sketch`` of 64
    synthetic 4 Mibase genomes, ``dist`` of those 64 sketches (4096 pairs,
    the 64-bit kernel) and of 1024 sketches with controlled overlap
    (10^6 pairs, rank compression + the 32-bit kernel); cross-checked
-   against the CPU's plain path on two genomes and a 128 x 128 block.
-   Every kernel's launch count is reset just before this phase and must
-   be positive after it.  Each main-path command prints one JSON line
-   with its wall seconds and the wall seconds of its stages
-   (``mash_tpu_torch.utils.stage``); with ``--profile`` the line also
-   holds the share of that wall time in which the card ran a kernel
-   (``torch.profiler``, CUDA activity only) and the kernels that took
-   most of it.
+   against the CPU's plain path on two genomes and a 128 x 128 block;
+5. screen through the same entry point: ``screen`` and ``screen -w`` of
+   the 64 genomes (256 Mibase) against a DB of their sketches and 10 000
+   random ones (about 10^7 distinct hashes), and ``taxscreen`` against
+   the 64 sketches with taxid comments and a tiny taxonomy; ``screen``
+   and ``taxscreen`` of one genome cross-checked against the CPU's plain
+   path.
+
+Every kernel's launch count is reset just before each main-path command
+of phases 4 and 5 and read just after it; the kernels that command runs
+must have launched.  Each main-path command prints one JSON line with
+its wall seconds and the wall seconds of its stages
+(``mash_tpu_torch.utils.stage``); with ``--profile`` the line also holds
+the share of that wall time in which the card ran a kernel
+(``torch.profiler``, CUDA activity only), the kernels that took most of
+it, and the device time grouped by kernel family (by kernel name).
 
 The last three lines of stdout are the card's ``nvidia-smi`` name and
 power limit, a ``{"kernels": [...]}`` summary and
@@ -57,7 +68,14 @@ S = 1000
 N_GENOMES = 64
 GENOME_LEN = 1 << 22  # 4 Mibase: files clear the 4 MiB fast-ingest gate
 N_BIG = 1024
+N_SCREEN_SYNTH = 10_000  # random DB sketches beside the 64 genomes'
+N_CROSS_SYNTH = 1000
+SCREEN_H = (10_000_000, 110_000)  # DB sizes of the screen_count timings
+INT32_MAX = 2**31 - 1
 REPEATS = 7
+# where the CLI runs: the card, or the plain path of the cross-checks
+GPU = {"MASH_TPU_TORCH_DEVICE": "cuda"}
+CPU = {"MASH_TPU_TORCH_DEVICE": "cpu"}
 
 
 class SmokeError(RuntimeError):
@@ -153,9 +171,36 @@ def device_profile(fn):
     return result, wall, busy * 1e-6, per_name
 
 
-def timed_cli(name, argv, env, profile_device: bool):
+# Kernel families by name, first match wins: the port's own kernels, then
+# PyTorch's sorts (torch.sort), top-k selection, elementwise arithmetic
+# (most of it the plain hash pass of screen) and copies.
+KERNEL_FAMILIES = (
+    ("screen_count", ("screen_count",)),
+    ("sketch_select", ("sketch_select",)),
+    ("pairwise", ("pairwise",)),
+    ("sort", ("sort",)),
+    ("topk", ("topk",)),
+    ("elementwise", ("elementwise",)),
+    ("copy", ("memcpy", "memset", "copy")),
+)
+
+
+def kernel_families(per_name: dict) -> dict:
+    """Device seconds by kernel family (``KERNEL_FAMILIES``, else
+    "other")."""
+    out: dict = {}
+    for name, secs in per_name.items():
+        low = name.lower()
+        fam = next((f for f, keys in KERNEL_FAMILIES
+                    if any(k in low for k in keys)), "other")
+        out[fam] = out.get(fam, 0.0) + secs
+    return out
+
+
+def timed_cli(name, argv, env, profile_device: bool, extra=None):
     """``run_cli`` with the command's wall time and stage breakdown
-    printed as one JSON line; returns stdout."""
+    printed as one JSON line (with ``extra(wall)``'s keys, if given);
+    returns stdout and the wall seconds."""
     import torch
 
     from mash_tpu_torch.utils.profiling import pop_stage_totals
@@ -165,15 +210,18 @@ def timed_cli(name, argv, env, profile_device: bool):
     line = {"command": name}
     if profile_device:
         out, wall, busy, per_name = device_profile(lambda: run_cli(argv, env))
-        top = sorted(per_name.items(), key=lambda kv: -kv[1])[:6]
+        top = sorted(per_name.items(), key=lambda kv: -kv[1])[:8]
         line.update(device_busy_s=busy, device_busy_share=busy / wall,
-                    top_kernels_s=dict(top))
+                    top_kernels_s=dict(top),
+                    kernel_families_s=kernel_families(per_name))
     else:
         t0 = time.perf_counter()
         out = run_cli(argv, env)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     line.update(wall_s=wall, stages_s=pop_stage_totals())
+    if extra is not None:
+        line.update(extra(wall))
     print(json.dumps(line), flush=True)
     return out, wall
 
@@ -229,6 +277,40 @@ def overlap_sketches(rng, n: int, s: int, cluster: int = 32):
                     [row, rng.integers(0, 2**64 - 1, 1, dtype=np.uint64)]))
             out[i] = row[:s]
     return out
+
+
+def random_sketches(rng, n: int, s: int):
+    """n sorted sketches of s random uint64 hashes each: n * s distinct
+    hashes, short of a 2^-64 collision."""
+    import numpy as np
+
+    out = np.sort(rng.integers(0, 2**64 - 1, (n, s), dtype=np.uint64), 1)
+    require(bool(np.all(out[:, 1:] > out[:, :-1])), "random sketch collision")
+    return out
+
+
+def random_i64(n: int, gen):
+    """n random int64 bit patterns on the card from ``gen``."""
+    import torch
+
+    hi = torch.randint(0, 1 << 32, (n,), generator=gen, device="cuda")
+    lo = torch.randint(0, 1 << 32, (n,), generator=gen, device="cuda")
+    return (hi << 32) | lo
+
+
+def screen_flush_len(H: int) -> int:
+    """Hashes in one flush of ``screen``'s fast-ingest route against H
+    DB hashes: whole ingest batches (rows of L - K + 1 windows) are
+    queued until the counter's flush size is reached."""
+    import torch
+
+    from mash_tpu_torch.core.engine import DEFAULT_CHUNK
+    from mash_tpu_torch.core.loader import _fast_batch_rows
+    from mash_tpu_torch.ops.screen_ops import flush_size
+
+    dev = torch.device("cuda")
+    per_batch = _fast_batch_rows(dev) * (DEFAULT_CHUNK - K + 1)
+    return -(-flush_size(H, dev) // per_batch) * per_batch
 
 
 def write_genomes(rng, folder: str):
@@ -348,7 +430,106 @@ def phase_kernels(rng, report):
                    "pairwise32", 4, True)
     require(all(torch.equal(a, b) for a, b in zip(want64, want32)),
             "rank_compress changed (common, denom)")
+    gen = torch.Generator(device=dev).manual_seed(int(rng.integers(2**31)))
+    for H in SCREEN_H:
+        screen_count_case(gen, H, H == SCREEN_H[0], report)
+    screen_items(rng, gen)
     print("phase kernels: ok", flush=True)
+
+
+def screen_items(rng, gen) -> None:
+    """Prints the device milliseconds of the plain PyTorch work around
+    ``screen_count`` on the screen path: the hash pass and the
+    cardinality fold of one ingest batch, and the sort of one flush
+    against 10^7 DB hashes."""
+    import torch
+
+    from mash_tpu_torch.core.engine import DEFAULT_CHUNK
+    from mash_tpu_torch.core.loader import _fast_batch_rows
+    from mash_tpu_torch.ops import sketch_ops
+    from mash_tpu_torch.ops.kmers import hash_chunk
+
+    dev = torch.device("cuda")
+    rows = torch.from_numpy(random_chunks(
+        rng, _fast_batch_rows(dev), DEFAULT_CHUNK)).to(dev)
+    kw = dict(alphabet=tuple(b"ACGT"), k=K, seed=42, use64=True,
+              noncanonical=False, preserve_case=False)
+    h, v = hash_chunk(rows, **kw)
+    keys = random_i64(screen_flush_len(SCREEN_H[0]), gen)
+    items = {
+        "hash_chunk [%d, %d]" % tuple(rows.shape):
+            cuda_ms(lambda: hash_chunk(rows, **kw)),
+        "sketch_chunk_batch [%d, %d]" % tuple(h.shape):
+            cuda_ms(lambda: sketch_ops.sketch_chunk_batch(h, v, s=S)),
+        "flush sort n=%d" % keys.numel(): cuda_ms(lambda: torch.sort(keys)),
+    }
+    print(json.dumps({"screen_items_ms": items}), flush=True)
+
+
+def screen_count_case(gen, H: int, main: bool, report):
+    """``screen_count`` against its plain version at one flush of the
+    main path: a random DB of H hashes, one of them 2^64-1; a batch with
+    a quarter of its hashes planted from the DB (with repeats), 1% EMPTY
+    lanes and a few DB hashes' counts starting just below saturation."""
+    import torch
+
+    from mash_tpu_torch.ops import screen_kernel
+    from mash_tpu_torch.ops.sketch_ops import EMPTY, biased
+
+    dev = torch.device("cuda")
+    n = screen_flush_len(H)
+    db = biased(torch.unique(biased(random_i64(H - 1, gen))))
+    db = torch.cat([db[db != EMPTY],
+                    torch.full((1,), EMPTY, dtype=torch.int64, device=dev)])
+    H = db.numel()
+    batch = random_i64(n, gen)
+    q = n // 4
+    batch[:q] = db[torch.randint(0, H, (q,), generator=gen, device=dev)]
+    batch[q : q + n // 100] = EMPTY
+    near = torch.randint(0, H - 1, (8,), generator=gen, device=dev)
+    batch[q + n // 100 : q + n // 100 + 24] = db[near].repeat(3)
+    batch = biased(torch.sort(biased(batch)).values)
+    counts0 = torch.randint(0, 1000, (H,), generator=gen, device=dev,
+                            dtype=torch.int32)
+    counts0[near] = INT32_MAX - 2
+    got, want = counts0.clone(), counts0.clone()
+    screen_kernel.screen_count(batch, db, got)
+    screen_kernel.screen_count_plain(batch, db, want)
+    torch.cuda.synchronize()
+    err = max_abs_err([got], [want])
+    require(err == 0.0, "screen_count n=%d H=%d disagrees" % (n, H))
+    require(bool((got[near] == INT32_MAX).all()), "screen_count saturation")
+    work = counts0.clone()
+    ms = cuda_ms(lambda: screen_kernel.screen_count(batch, db, work))
+    plain_ms = cuda_ms(
+        lambda: screen_kernel.screen_count_plain(batch, db, work))
+    sb, sd = biased(batch), biased(db)
+    library_ms = cuda_ms(lambda: (torch.searchsorted(sb, sd, side="right"),
+                                  torch.searchsorted(sb, sd, side="left")))
+    # the batch and the DB read once, the counts read and written once;
+    # a merge of the two sorted arrays compares each element about once
+    bound_ms, bound_by = bound(8 * n + 8 * H + 8 * H, n + H)
+    report.append(dict(
+        name="screen_count", shape="flush n=%d, H=%d" % (n, H),
+        max_abs_err=err, kernel_ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+        bound_by=bound_by, library_ms=library_ms, main=main))
+
+
+def _launch_counters():
+    from mash_tpu_torch.ops import pairwise_kernel, screen_kernel, sketch_kernel
+
+    return (sketch_kernel.LAUNCHES, pairwise_kernel.LAUNCHES,
+            screen_kernel.LAUNCHES)
+
+
+def reset_launches() -> None:
+    for c in _launch_counters():
+        for name in c:
+            c[name] = 0
+
+
+def read_launches() -> dict:
+    return {name: n for c in _launch_counters() for name, n in c.items()}
 
 
 def phase_end_to_end(rng, folder, profile_device=False):
@@ -374,13 +555,10 @@ def phase_end_to_end(rng, folder, profile_device=False):
     sub_msh = os.path.join(folder, "sub.msh")
     capnp_msh.write_msh(sub_msh, params, refs[:128])
     all_msh = os.path.join(folder, "all.msh")
-    gpu = {"MASH_TPU_TORCH_DEVICE": "cuda"}
+    gpu = GPU
 
     command_registry()  # import every command before the clocks start
-    counters = (sketch_kernel.LAUNCHES, pairwise_kernel.LAUNCHES)
-    for c in counters:
-        for name in c:
-            c[name] = 0
+    reset_launches()
 
     _, t_sketch = timed_cli(
         "sketch", ["sketch", "-k", str(K), "-s", str(S), "-o", all_msh,
@@ -413,11 +591,11 @@ def phase_end_to_end(rng, folder, profile_device=False):
             % len(big_lines))
     print("dist %d pairs in %.3f s = %.4g pairs/s"
           % (N_BIG ** 2, t_big, N_BIG ** 2 / t_big), flush=True)
-    launches = {**sketch_kernel.LAUNCHES, **pairwise_kernel.LAUNCHES}
+    launches = read_launches()
     print("main-path launches: %s" % json.dumps(launches), flush=True)
 
     # cross-checks against the CPU's plain path
-    cpu = {"MASH_TPU_TORCH_DEVICE": "cpu"}
+    cpu = CPU
     two_gpu = os.path.join(folder, "two_gpu.msh")
     two_cpu = os.path.join(folder, "two_cpu.msh")
     run_cli(["sketch", "-o", two_gpu, *paths[:2]], gpu)
@@ -435,6 +613,108 @@ def phase_end_to_end(rng, folder, profile_device=False):
                     for r in msh.references),
             "all.msh does not hold %d sorted sketches of %d" % (N_GENOMES, S))
     print("phase end to end: ok", flush=True)
+    return launches, paths, all_msh
+
+
+TAX_NODES = ("1\t|\t1\t|\tno rank\t|\n561\t|\t1\t|\tgenus\t|\n"
+             "562\t|\t561\t|\tspecies\t|\n563\t|\t561\t|\tspecies\t|\n")
+TAX_NAMES = ("1\t|\troot\t|\t\t|\tscientific name\t|\n"
+             "561\t|\tEscherichia\t|\t\t|\tscientific name\t|\n"
+             "562\t|\tEscherichia coli\t|\t\t|\tscientific name\t|\n"
+             "563\t|\tEscherichia other\t|\t\t|\tscientific name\t|\n")
+
+
+def phase_screen(rng, folder, paths, all_msh, profile_device=False):
+    """screen, screen -w and taxscreen of the 64 genomes through the CLI,
+    each with every launch counter reset just before it; then screen and
+    taxscreen of one genome on the card and on the CPU."""
+    import dataclasses
+
+    import numpy as np
+
+    from mash_tpu_torch.core.sketch import SketchRef
+    from mash_tpu_torch.io import capnp_msh
+
+    genomes = capnp_msh.read_msh(all_msh)
+    params = genomes.params
+    synth = random_sketches(rng, N_SCREEN_SYNTH, S)
+
+    def synth_refs(m, comment=""):
+        return [SketchRef(name="synth%05d" % i, comment=comment,
+                          length=4_000_000, hashes=synth[i])
+                for i in range(m)]
+
+    # taxids: the first half of the genomes one species, the rest another
+    tax_refs = [dataclasses.replace(
+        r, comment="taxid %d" % (562 if i < N_GENOMES // 2 else 563))
+        for i, r in enumerate(genomes.references)]
+    db_msh, tax_msh, cross_msh = (os.path.join(folder, n) for n in (
+        "screen_db.msh", "tax_db.msh", "cross_db.msh"))
+    capnp_msh.write_msh(db_msh, params,
+                        genomes.references + synth_refs(N_SCREEN_SYNTH))
+    capnp_msh.write_msh(tax_msh, params, tax_refs)
+    capnp_msh.write_msh(cross_msh, params,
+                        tax_refs + synth_refs(N_CROSS_SYNTH, "taxid 561"))
+    taxdir = os.path.join(folder, "taxonomy")
+    os.makedirs(taxdir)
+    with open(os.path.join(taxdir, "nodes.dmp"), "w") as f:
+        f.write(TAX_NODES)
+    with open(os.path.join(taxdir, "names.dmp"), "w") as f:
+        f.write(TAX_NAMES)
+    genome_hashes = np.unique(np.concatenate(
+        [r.hashes for r in genomes.references]))
+    union = len(genome_hashes)
+    db_hashes = len(np.unique(np.concatenate([synth.ravel(),
+                                              genome_hashes])))
+    bases = N_GENOMES * GENOME_LEN
+
+    def run_screen(name, argv):
+        reset_launches()
+        out, wall = timed_cli(name, argv, GPU, profile_device, lambda w: {
+            "bases": bases, "bases_per_s": bases / w})
+        launches = read_launches()
+        require(launches["screen_count"] > 0,
+                "%s did not launch screen_count" % name)
+        print("%s launches: %s" % (name, json.dumps(launches)), flush=True)
+        return out, wall, launches
+
+    out, wall, launches = run_screen("screen", ["screen", db_msh, *paths])
+    print("screen: %d bases against %d DB hashes in %.3f s = %.4g bases/s"
+          % (bases, db_hashes, wall, bases / wall), flush=True)
+    rows = [ln.split("\t") for ln in out.splitlines()]
+    require(len(rows) >= N_GENOMES, "screen printed %d lines" % len(rows))
+    by_name = {f[4]: f for f in rows if len(f) == 6}
+    full = "%d/%d" % (S, S)
+    require(all(p in by_name and by_name[p][:2] == ["1", full]
+                for p in paths),
+            "a genome did not screen at identity 1 with %s" % full)
+
+    out_w, _, _ = run_screen("screen_w", ["screen", "-w", db_msh, *paths])
+    shared = [int(ln.split("\t")[1].split("/")[0])
+              for ln in out_w.splitlines()]
+    # every DB hash of the genomes occurs in the mixture and goes to one
+    # winner; no random DB hash occurs
+    require(sum(shared) == union, "screen -w shared %d of the genomes' %d "
+            "distinct hashes" % (sum(shared), union))
+
+    out_t, _, _ = run_screen("taxscreen", ["taxscreen", "-t", taxdir, tax_msh,
+                                           *paths])
+    report = [ln.split("\t") for ln in out_t.splitlines()[1:]]
+    require(report and report[0][1] == report[0][3] == str(union)
+            and report[0][6] == "1", "taxscreen root is not %d/%d hashes"
+            % (union, union))
+    names = {f[-1].strip() for f in report}
+    require({"Escherichia", "Escherichia coli", "Escherichia other"}
+            <= names, "taxscreen report lacks a taxon: %s" % sorted(names))
+    print("screen -w and taxscreen: %d distinct genome hashes all counted"
+          % union, flush=True)
+
+    # cross-checks against the CPU's plain path
+    for argv in (["screen", cross_msh, paths[0]],
+                 ["taxscreen", "-t", taxdir, cross_msh, paths[0]]):
+        require(run_cli(argv, GPU) == run_cli(argv, CPU),
+                "%s of one genome differs from the CPU's" % argv[0])
+    print("phase screen: ok", flush=True)
     return launches
 
 
@@ -467,7 +747,7 @@ def main(argv=None) -> int:
     from mash_tpu_torch.ops import cuda_build
 
     t0 = time.perf_counter()
-    cuda_build.build(["sketch_select", "pairwise"])
+    cuda_build.build(["sketch_select", "pairwise", "screen_count"])
     require(native.load_library() is not None, "native library build")
     print("phase build: ok in %.1f s" % (time.perf_counter() - t0),
           flush=True)
@@ -476,7 +756,11 @@ def main(argv=None) -> int:
     report = []
     phase_kernels(rng, report)
     with tempfile.TemporaryDirectory(prefix="mash_smoke_") as folder:
-        launches = phase_end_to_end(rng, folder, args.profile)
+        launches, paths, all_msh = phase_end_to_end(rng, folder, args.profile)
+        screen_launches = phase_screen(rng, folder, paths, all_msh,
+                                       args.profile)
+    # each kernel's count from the run of the path that calls it
+    launches["screen_count"] = screen_launches["screen_count"]
 
     sources = {
         "sketch_select": ("mash_tpu_torch/ops/csrc/sketch_select.cu",
@@ -485,6 +769,8 @@ def main(argv=None) -> int:
                        "mash_tpu/ops/pallas_pairwise.py:63"),
         "pairwise32": ("mash_tpu_torch/ops/csrc/pairwise.cu",
                        "mash_tpu/ops/pallas_pairwise.py:137"),
+        "screen_count": ("mash_tpu_torch/ops/csrc/screen_count.cu",
+                         "mash_tpu/ops/pallas_screen.py:77"),
     }
     kernels = []
     for r in report:

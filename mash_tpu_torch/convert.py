@@ -30,6 +30,24 @@ def state_to_numpy(state):
     return h.cpu().numpy().view(np.uint64), c.cpu().numpy()
 
 
+def db_table_from_numpy(db_hashes_u64, seg_starts, ref_ids, device="cpu"):
+    """A screen DB table as ``mash_tpu`` holds it (``build_db_table``'s
+    uint64 hashes, int64 CSR starts, int32 reference ids) -> int64,
+    int64 and int32 tensors on ``device``."""
+    h = np.ascontiguousarray(db_hashes_u64, dtype=np.uint64).view(np.int64)
+    return (
+        torch.from_numpy(h).to(device),
+        torch.from_numpy(np.ascontiguousarray(seg_starts, np.int64)).to(device),
+        torch.from_numpy(np.ascontiguousarray(ref_ids, np.int32)).to(device),
+    )
+
+
+def counts_to_numpy(counts) -> np.ndarray:
+    """Non-negative DB-hash counts (int32 tensor) -> uint32 numpy, the
+    dtype of ``mash_tpu``'s finalized screen counts."""
+    return counts.cpu().numpy().astype(np.uint32)
+
+
 def params_from_numpy(ref_params) -> SketchParams:
     """The port's SketchParams with the same field values as a
     reference ``SketchParams`` (or a dict of its fields)."""

@@ -80,6 +80,16 @@ def complement_lut(alphabet: tuple) -> np.ndarray:
     return lut
 
 
+def complement_lut_az() -> np.ndarray:
+    """256-entry byte -> complement table over uppercase 'A'..'Z' (0 for
+    every other byte), whatever the alphabet: the host-side table of
+    ``translate_frames`` (``mash_tpu.ops.kmers.complement_lut()``)."""
+    lut = np.zeros(256, dtype=np.uint8)
+    for i, c in enumerate(_COMPLEMENT_AZ):
+        lut[ord("A") + i] = ord(c)
+    return lut
+
+
 def unpack_chunks(packed: torch.Tensor, chunk_len: int) -> torch.Tensor:
     """Reconstruct ``[B, chunk_len]`` byte chunks from packed ingest rows.
 

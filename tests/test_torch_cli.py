@@ -157,7 +157,7 @@ def test_dist_streamed_path(sketches, monkeypatch):
     [["sketch", "-r", "x.fa"], ["sketch", "-i", "x.fa"],
      ["sketch", "-W", "x.fa"], ["sketch", "-M", "x.fa"],
      ["sketch", "-m", "2", "x.fa"], ["triangle", "x.msh"],
-     ["info", "x.msh"], ["screen", "x.msh", "y.fa"]],
+     ["info", "x.msh"], ["within", "x.msh", "y.fa"]],
 )
 def test_not_ported_exits_nonzero(argv, capsys):
     assert torch_main(argv) == 1

@@ -10,8 +10,10 @@ Each kernel and its plain version run on the same CUDA tensors and must
 agree exactly (every output is an integer), at edge shapes that
 ``chip_smoke.py``'s main-path shapes do not reach: a ragged last subrow,
 k at 1 and 32, the protein alphabet, uneven pair grids, sizes that are
-not powers of two, a cap below the sketch size, and rows too wide for
-shared memory.
+not powers of two, a cap below the sketch size, rows too wide for
+shared memory, and for ``screen_count`` empty and all-EMPTY batches, a
+DB smaller than one tile, a DB hash of 2^64-1, saturation, a skewed
+batch and a batch of more than 2^31 bytes.
 """
 
 import contextlib
@@ -28,8 +30,11 @@ from mash_tpu_torch.core.params import (
 )
 from mash_tpu_torch.ops import distance as td
 from mash_tpu_torch.ops import pairwise_kernel as pk
+from mash_tpu_torch.ops import screen_kernel as sck
+from mash_tpu_torch.ops import screen_ops as so
 from mash_tpu_torch.ops import sketch_kernel as sk
 from mash_tpu_torch.ops.kmers import alphabet_bytes
+from mash_tpu_torch.ops.sketch_ops import biased
 
 pytestmark = pytest.mark.cuda
 
@@ -199,3 +204,153 @@ def test_cli_cuda_matches_cpu(gpu, tmp_path, monkeypatch):
     assert outs["cuda"] == outs["cpu"]
     assert sk.LAUNCHES["sketch_select"] > before[0]
     assert pk.LAUNCHES["pairwise64"] > before[1]
+
+
+IMAX = 2**31 - 1
+SCREEN_CASES = ["random", "empty_batch", "all_empty", "tiny_db", "db_sentinel",
+                "saturation", "skewed"]
+
+
+def _screen_case(case):
+    """(batch [n] sorted as uint64, DB [H] sorted and distinct, int32
+    counts [H]) for one edge of ``screen_count``."""
+    rng = np.random.default_rng(SCREEN_CASES.index(case))
+    n = 0 if case == "empty_batch" else 40000
+    if case == "skewed":  # every hash inside a tiny DB range
+        db = np.unique(rng.integers(0, 1000, 2000)).astype(np.uint64)
+        b = rng.integers(0, 1000, n).astype(np.uint64)
+    else:
+        H = 100 if case == "tiny_db" else 5000
+        db = np.unique(rng.integers(0, 2**64 - 1, H, dtype=np.uint64))
+        if case == "db_sentinel":
+            db = np.unique(np.concatenate([db, [EMPTY]]))
+        b = rng.integers(0, 2**64 - 1, n, dtype=np.uint64)
+        b[: n // 4] = db[rng.integers(0, len(db), n // 4)]
+        b[n // 4 : n // 4 + 500] = EMPTY
+        if case == "all_empty":
+            b[:] = EMPTY
+        if case == "saturation":
+            b[:2000] = np.repeat(db[:8], 250)
+    c = rng.integers(0, 100, len(db)).astype(np.int32)
+    if case == "saturation":
+        c[:8] = IMAX - rng.integers(0, 3, 8).astype(np.int32)
+    return np.sort(b), db, c
+
+
+@pytest.mark.parametrize("case", SCREEN_CASES)
+def test_screen_count_matches_plain(gpu, case):
+    b, db, c = _screen_case(case)
+    batch, dbt = _t(b, gpu), _t(db, gpu)
+    got = torch.from_numpy(c).to(gpu)
+    want = got.clone()
+    before = sck.LAUNCHES["screen_count"]
+    sck.screen_count(batch, dbt, got)
+    sck.screen_count_plain(batch, dbt, want)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    # no launch when there is nothing to count
+    assert sck.LAUNCHES["screen_count"] == before + (len(b) > 0)
+    if case == "saturation":
+        assert int(got[:8].min()) == IMAX
+    if case == "db_sentinel":
+        assert int(got[-1]) == int(c[-1])  # left for the caller
+
+
+def _random_i64(n, g, dev):
+    hi = torch.randint(0, 1 << 32, (n,), generator=g, device=dev)
+    lo = torch.randint(0, 1 << 32, (n,), generator=g, device=dev)
+    return (hi << 32) | lo
+
+
+def test_screen_count_batch_over_2gib(gpu):
+    """A flush of more than 2^31 bytes: the C entry takes int64 sizes."""
+    n = (1 << 28) + 4099
+    free, _total = torch.cuda.mem_get_info(gpu)
+    if free < 16 * 8 * n:
+        pytest.skip("needs about 35 GB of free device memory")
+    g = torch.Generator(device=gpu).manual_seed(3)
+    db = biased(torch.unique(biased(_random_i64(1 << 20, g, gpu))))
+    batch = _random_i64(n, g, gpu)
+    pick = torch.randint(0, db.numel(), (n // 4,), generator=g, device=gpu)
+    batch[: n // 4] = db[pick]
+    batch = biased(torch.sort(biased(batch)).values)
+    got = torch.zeros(db.numel(), dtype=torch.int32, device=gpu)
+    want = got.clone()
+    before = sck.LAUNCHES["screen_count"]
+    sck.screen_count(batch, db, got)
+    sck.screen_count_plain(batch, db, want)
+    torch.cuda.synchronize()
+    assert sck.LAUNCHES["screen_count"] == before + 1
+    assert torch.equal(got, want)
+    assert int(got.sum()) >= n // 4
+
+
+def test_screen_counter_cuda_matches_cpu(gpu):
+    """The whole counter (queue, unsigned sort, kernel, EMPTY-valued DB
+    hash) with flushes of uneven chunk counts."""
+    rng = np.random.default_rng(11)
+    db = np.unique(np.concatenate(
+        [rng.integers(0, 2**64 - 1, 3000, dtype=np.uint64), [EMPTY]]))
+    chunks = []
+    for i in range(6):
+        n = 5000 + 1000 * i
+        h = rng.integers(0, 2**64 - 1, n, dtype=np.uint64)
+        h[: n // 3] = db[rng.integers(0, len(db), n // 3)]
+        chunks.append((h, rng.random(n) < 0.9))
+    out = {}
+    before = sck.LAUNCHES["screen_count"]
+    for dev in ("cpu", "cuda"):
+        counter = so.ScreenCounter(_t(db, dev), flush_hashes=12000)
+        for h, v in chunks:
+            counter.add(_t(h, dev), torch.from_numpy(v).to(dev))
+        out[dev] = counter.finalize()
+    np.testing.assert_array_equal(out["cuda"], out["cpu"])
+    assert sck.LAUNCHES["screen_count"] > before
+    assert out["cpu"][-1] > 0  # the EMPTY-valued DB hash was counted
+
+
+def test_screen_cli_cuda_matches_cpu(gpu, tmp_path, monkeypatch):
+    """``screen``, ``screen -w`` and ``taxscreen`` on the card print
+    what the CPU's plain path does, through both ingest routes."""
+    from mash_tpu_torch.__main__ import main
+
+    files = []
+    for i, n in enumerate((30000, 45000, 4_300_000)):
+        seq = _seq(100 + i, b"ACGTACGTacgtN", n)
+        path = tmp_path / ("g%d.fa" % i)
+        path.write_bytes(b">g%d\n" % i + seq.tobytes() + b"\n")
+        files.append(str(path))
+    tax = tmp_path / "tax"
+    tax.mkdir()
+    (tax / "nodes.dmp").write_text(
+        "1\t|\t1\t|\tno rank\t|\n561\t|\t1\t|\tgenus\t|\n"
+        "562\t|\t561\t|\tspecies\t|\n563\t|\t561\t|\tspecies\t|\n")
+    (tax / "names.dmp").write_text(
+        "1\t|\troot\t|\t\t|\tscientific name\t|\n"
+        "561\t|\tEscherichia\t|\t\t|\tscientific name\t|\n"
+        "562\t|\tEscherichia coli\t|\t\t|\tscientific name\t|\n"
+        "563\t|\tEscherichia other\t|\t\t|\tscientific name\t|\n")
+    mapping = tmp_path / "map.txt"
+    mapping.write_text("562\t%s\n563\t%s\n562\t%s\n" % tuple(files))
+
+    def run(device, argv):
+        monkeypatch.setenv("MASH_TPU_TORCH_DEVICE", device)
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            assert main(argv) == 0
+        return out.getvalue()
+
+    db = str(tmp_path / "db.msh")
+    run("cpu", ["sketch", "-o", db, *files])
+    before = sck.LAUNCHES["screen_count"]
+    outs = {}
+    for device in ("cuda", "cpu"):
+        outs[device] = (
+            run(device, ["screen", db, *files]),
+            run(device, ["screen", "-w", db, files[0], files[1]]),
+            run(device, ["taxscreen", "-t", str(tax), "-m", str(mapping),
+                         db, files[1]]),
+        )
+    assert outs["cuda"] == outs["cpu"]
+    assert sck.LAUNCHES["screen_count"] > before
+    assert len(outs["cpu"][0].splitlines()) == 3
