@@ -13,10 +13,16 @@ Phases (any failure exits non-zero before the result lines):
    native parser library;
 3. kernels: each kernel at the main path's shapes against its plain
    PyTorch version on the same inputs (exact equality: every output is an
-   integer), timed with CUDA events (median of 7 after one warm-up);
-   ``screen_count`` at one ``screen`` flush against 10^7 DB hashes and
-   against 1.1e5, and the plain work around it (hash pass, cardinality
-   fold, flush sort) at the screen path's shapes;
+   integer; the DB table by what it holds, since the atomic inserts
+   place the keys of one probe run in any order), timed with CUDA events
+   (median of 7 after one warm-up); ``sketch_select`` on one genome
+   file's rows, a full 32-row batch, k = 16, and one file's rows at
+   s = 5000 (m = 128); ``screen_table`` on a DB
+   of 10^7 hashes and ``screen_count`` on one ``screen`` ingest batch
+   against 10^7, 1.1e5 and 23 449 DB hashes, beside a sort of the batch
+   and two ``torch.searchsorted`` calls (the yardstick), and again with
+   every lane invalid (the batch alone) and without hits; the plain work
+   around them (hash pass, cardinality fold) at the screen path's shapes;
 4. end to end through ``mash_tpu_torch.__main__.main``: ``sketch`` of 64
    synthetic 4 Mibase genomes, ``dist`` of those 64 sketches (4096 pairs,
    the 64-bit kernel) and of 1024 sketches with controlled overlap
@@ -31,8 +37,9 @@ Phases (any failure exits non-zero before the result lines):
 
 Every kernel's launch count is reset just before each main-path command
 of phases 4 and 5 and read just after it; the kernels that command runs
-must have launched.  Each main-path command prints one JSON line with
-its wall seconds and the wall seconds of its stages
+must have launched, and no ``torch.sort`` call of the screen counter may
+be left on the screen commands' path.  Each main-path command prints one
+JSON line with its wall seconds and the wall seconds of its stages
 (``mash_tpu_torch.utils.stage``); with ``--profile`` the line also holds
 the share of that wall time in which the card ran a kernel
 (``torch.profiler``, CUDA activity only), the kernels that took most of
@@ -57,11 +64,16 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
-# Published H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, and the
-# float32 rate outside the tensor cores, used here as the scalar-lane
-# rate for the kernels' integer operations (no integer tensor-core work).
+# Published H100 SXM peaks: HBM bandwidth (NVIDIA data sheet), and the
+# rate of one integer pipe: 64 lanes per SM and clock for every 32-bit
+# integer add, multiply(-add), shift, logic and compare (CUDA C++
+# Programming Guide, arithmetic instruction throughput, compute capability
+# 9.0; the Hopper architecture white paper's 64 INT32 lanes per SM) x 132
+# SMs x the 1.98 GHz boost clock at which the data sheet's 67 TFLOP/s
+# float32 (128 lanes x 2 FLOPs) holds.  The kernels' operations are
+# integer ones, counted in 32-bit instructions on the busier pipe.
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_SCALAR_OPS_PER_S = 67e12
+PEAK_INT32_PER_S = 132 * 64 * 1.98e9
 
 K = 21
 S = 1000
@@ -70,8 +82,9 @@ GENOME_LEN = 1 << 22  # 4 Mibase: files clear the 4 MiB fast-ingest gate
 N_BIG = 1024
 N_SCREEN_SYNTH = 10_000  # random DB sketches beside the 64 genomes'
 N_CROSS_SYNTH = 1000
-SCREEN_H = (10_000_000, 110_000)  # DB sizes of the screen_count timings
-INT32_MAX = 2**31 - 1
+# DB sizes of the screen_count timings: the screen phase's DB (about
+# 10^7), a mid-size one, and taxscreen's (the 64 genome sketches)
+SCREEN_H = (10_000_000, 110_000, 23_449)
 REPEATS = 7
 # where the CLI runs: the card, or the plain path of the cross-checks
 GPU = {"MASH_TPU_TORCH_DEVICE": "cuda"}
@@ -126,19 +139,82 @@ def max_abs_err(got, want) -> float:
     return err
 
 
-def murmur_ops(k: int) -> int:
-    """64-bit operations of MurmurHash3_x64_128 h1 over k bytes."""
-    ops = 24 * (k // 16) + 22
-    if k % 16 > 8:
-        ops += 6
-    if k % 16:
-        ops += 6
-    return ops
+# A probe of sketch_select.cu's MurmurHash3 over one window, beside a
+# kernel that only copies, to count the 32-bit instructions of the hash.
+HASH_PROBE = r"""
+#include "%s"
+extern "C" __global__ void probe_copy(const u64* w, u64* o) {
+  o[threadIdx.x] = w[threadIdx.x];
+}
+extern "C" __global__ void probe_hash(const u64* w, u64* o) {
+  u64 words[PROBE_NW];
+  for (int i = 0; i < PROBE_NW; ++i)
+    words[i] = w[threadIdx.x * PROBE_NW + i];
+  o[threadIdx.x] = mmh3_h1<PROBE_NW>(words, PROBE_K, 42);
+}
+"""
+# SASS integer opcodes by the pipe that issues them on sm_90: multiplies
+# (and the adds and shifts the compiler folds into IMAD) on the FMA pipe,
+# adds, logic, shifts, byte permutes and compares on the ALU pipe.  Moves
+# (MOV, IMAD.MOV) are left out: the hash needs none of them.
+FMA_OPCODES = ("IMAD", "IMUL")
+ALU_OPCODES = ("IADD3", "LOP3", "SHF", "PRMT", "LEA", "SEL", "ISETP",
+               "IMNMX", "IABS")
+
+
+def hash_instructions(k: int, folder: str) -> dict:
+    """32-bit integer instructions, by pipe (``{"fma": n, "alu": n}``),
+    that ``sketch_select.cu``'s MurmurHash3 takes for one k-byte window,
+    as ``nvcc`` compiles it for sm_90a: the integer opcodes in
+    ``cuobjdump -sass`` of a kernel that hashes one window, less those of
+    one that only copies a word."""
+    from mash_tpu_torch.ops import cuda_build
+
+    src = os.path.join(ROOT, "mash_tpu_torch", "ops", "csrc",
+                       "sketch_select.cu")
+    probe = os.path.join(folder, "hash_probe_k%d.cu" % k)
+    cubin = probe[:-3] + ".cubin"
+    with open(probe, "w") as f:
+        f.write(HASH_PROBE % src)
+    nvcc = cuda_build.nvcc()
+    built = subprocess.run(
+        [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+         "-O3", "-cubin", "-DPROBE_K=%d" % k,
+         "-DPROBE_NW=%d" % ((k + 7) // 8), "-o", cubin, probe],
+        capture_output=True, text=True, timeout=300)
+    require(built.returncode == 0, "hash probe build: %s" % built.stderr)
+    cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", cubin], check=True,
+                          capture_output=True, text=True,
+                          timeout=60).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            counts[fn] = {"fma": 0, "alu": 0}
+            continue
+        op = line.split("*/", 1)[1].split() if "*/" in line else []
+        if op and op[0].startswith("@"):  # a predicate guard
+            op = op[1:]
+        if not (fn and op) or op[0].startswith("IMAD.MOV"):
+            continue
+        base = op[0].split(".")[0]
+        pipe = ("fma" if base in FMA_OPCODES
+                else "alu" if base in ALU_OPCODES else None)
+        if pipe:
+            counts[fn][pipe] += 1
+    hashed, copied = counts.get("probe_hash"), counts.get("probe_copy")
+    require(hashed is not None and copied is not None
+            and hashed["fma"] > copied["fma"],
+            "cuobjdump showed no hash instructions: %s" % counts)
+    return {p: max(0, hashed[p] - copied[p]) for p in hashed}
 
 
 def bound(nbytes: float, nops: float):
+    """Least milliseconds for ``nbytes`` of device memory traffic and
+    ``nops`` 32-bit integer instructions, and which of the two bounds."""
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = nops / PEAK_SCALAR_OPS_PER_S * 1e3
+    t_ops = nops / PEAK_INT32_PER_S * 1e3
     if t_bytes >= t_ops:
         return t_bytes, "bytes"
     return t_ops, "operations"
@@ -176,6 +252,7 @@ def device_profile(fn):
 # (most of it the plain hash pass of screen) and copies.
 KERNEL_FAMILIES = (
     ("screen_count", ("screen_count",)),
+    ("screen_table", ("screen_table",)),
     ("sketch_select", ("sketch_select",)),
     ("pairwise", ("pairwise",)),
     ("sort", ("sort",)),
@@ -298,21 +375,6 @@ def random_i64(n: int, gen):
     return (hi << 32) | lo
 
 
-def screen_flush_len(H: int) -> int:
-    """Hashes in one flush of ``screen``'s fast-ingest route against H
-    DB hashes: whole ingest batches (rows of L - K + 1 windows) are
-    queued until the counter's flush size is reached."""
-    import torch
-
-    from mash_tpu_torch.core.engine import DEFAULT_CHUNK
-    from mash_tpu_torch.core.loader import _fast_batch_rows
-    from mash_tpu_torch.ops.screen_ops import flush_size
-
-    dev = torch.device("cuda")
-    per_batch = _fast_batch_rows(dev) * (DEFAULT_CHUNK - K + 1)
-    return -(-flush_size(H, dev) // per_batch) * per_batch
-
-
 def write_genomes(rng, folder: str):
     """N_GENOMES FASTA files: mutated copies of one random genome."""
     import numpy as np
@@ -340,7 +402,7 @@ def write_genomes(rng, folder: str):
 
 # -- phases ---------------------------------------------------------------
 
-def phase_kernels(rng, report):
+def phase_kernels(rng, report, folder):
     """Each kernel against its plain version at main-path shapes."""
     import numpy as np
     import torch
@@ -354,13 +416,18 @@ def phase_kernels(rng, report):
     length = DEFAULT_CHUNK
     full = torch.from_numpy(random_chunks(rng, 32, length)).to(dev)
     # each genome file is one batch of the chunks its windows need; a
-    # full 32-row batch (larger files) and k = 16 are off the main path
+    # full 32-row batch (larger files), k = 16 and s = 5000 (m = 128, the
+    # block sort instead of the warp merge) are off the main path
     file_rows = -(-(GENOME_LEN - K + 1) // (length - K + 1))
-    for k, use64, rows, main in ((K, True, file_rows, True),
-                                 (K, True, 32, False), (16, False, 32, False)):
+    hash_instr = {k: hash_instructions(k, folder) for k in (K, 16)}
+    print("MurmurHash3 32-bit integer instructions per window by pipe "
+          "(sm_90a SASS): %s" % json.dumps(hash_instr), flush=True)
+    for k, use64, rows, s, main in (
+            (K, True, file_rows, S, True), (K, True, 32, S, False),
+            (16, False, 32, S, False), (K, True, file_rows, 5000, False)):
         chunks = full[:rows].contiguous()
         n = length - k + 1
-        m = candidate_budget(S, sketch_kernel.C, n)
+        m = candidate_budget(s, sketch_kernel.C, n)
         kw = dict(alphabet=alphabet, k=k, seed=42, use64=use64,
                   noncanonical=False, preserve_case=False)
         got = sketch_kernel.sketch_select(chunks, **kw, m=m)
@@ -368,8 +435,8 @@ def phase_kernels(rng, report):
         torch.cuda.synchronize()
         err = max_abs_err(got, want)
         require(err == 0.0, "sketch_select k=%d disagrees" % k)
-        fused = sketch_kernel.sketch_chunks_fused(chunks, **kw, s=S)
-        plain = sketch_kernel.sketch_chunks_plain(chunks, **kw, s=S)
+        fused = sketch_kernel.sketch_chunks_fused(chunks, **kw, s=s)
+        plain = sketch_kernel.sketch_chunks_plain(chunks, **kw, s=s)
         require(torch.equal(fused[0], plain[0])
                 and torch.equal(fused[1], plain[1]),
                 "sketch_chunks_fused k=%d disagrees" % k)
@@ -379,8 +446,11 @@ def phase_kernels(rng, report):
         windows = rows * n
         nbytes = rows * length + got[0].numel() * 8 + got[1].numel() * 8 \
             + got[2].numel() * 4
-        nops = windows * (3 * k + murmur_ops(k) + 1)
-        bound_ms, bound_by = bound(nbytes, nops)
+        # every window's hash on the busier of the two integer pipes; the
+        # rolling, canonical choice and selection are left out, so this is
+        # a lower bound
+        bound_ms, bound_by = bound(nbytes,
+                                   windows * max(hash_instr[k].values()))
         report.append(dict(
             name="sketch_select", shape="[%d, %d] k=%d use64=%s m=%d"
             % (rows, length, k, use64, m), max_abs_err=err, kernel_ms=ms,
@@ -433,15 +503,14 @@ def phase_kernels(rng, report):
     gen = torch.Generator(device=dev).manual_seed(int(rng.integers(2**31)))
     for H in SCREEN_H:
         screen_count_case(gen, H, H == SCREEN_H[0], report)
-    screen_items(rng, gen)
+    screen_items(rng)
     print("phase kernels: ok", flush=True)
 
 
-def screen_items(rng, gen) -> None:
-    """Prints the device milliseconds of the plain PyTorch work around
+def screen_items(rng) -> None:
+    """Prints the device milliseconds of the plain PyTorch work beside
     ``screen_count`` on the screen path: the hash pass and the
-    cardinality fold of one ingest batch, and the sort of one flush
-    against 10^7 DB hashes."""
+    cardinality fold of one ingest batch."""
     import torch
 
     from mash_tpu_torch.core.engine import DEFAULT_CHUNK
@@ -455,64 +524,125 @@ def screen_items(rng, gen) -> None:
     kw = dict(alphabet=tuple(b"ACGT"), k=K, seed=42, use64=True,
               noncanonical=False, preserve_case=False)
     h, v = hash_chunk(rows, **kw)
-    keys = random_i64(screen_flush_len(SCREEN_H[0]), gen)
     items = {
         "hash_chunk [%d, %d]" % tuple(rows.shape):
             cuda_ms(lambda: hash_chunk(rows, **kw)),
         "sketch_chunk_batch [%d, %d]" % tuple(h.shape):
             cuda_ms(lambda: sketch_ops.sketch_chunk_batch(h, v, s=S)),
-        "flush sort n=%d" % keys.numel(): cuda_ms(lambda: torch.sort(keys)),
     }
     print(json.dumps({"screen_items_ms": items}), flush=True)
 
 
 def screen_count_case(gen, H: int, main: bool, report):
-    """``screen_count`` against its plain version at one flush of the
-    main path: a random DB of H hashes, one of them 2^64-1; a batch with
-    a quarter of its hashes planted from the DB (with repeats), 1% EMPTY
-    lanes and a few DB hashes' counts starting just below saturation."""
+    """``screen_table`` and ``screen_count`` against their plain versions
+    on one ingest batch of the screen path: a random DB of H hashes, one
+    of them 2^64-1; a ``[rows, L - K + 1]`` batch with a quarter of its
+    hashes planted from the DB (with repeats), some valid 2^64-1 lanes and
+    1% invalid ones, in random order; totals starting just below 2^32."""
     import torch
 
-    from mash_tpu_torch.ops import screen_kernel
+    from mash_tpu_torch.core.engine import DEFAULT_CHUNK
+    from mash_tpu_torch.core.loader import _fast_batch_rows
+    from mash_tpu_torch.ops import screen_kernel as sk
     from mash_tpu_torch.ops.sketch_ops import EMPTY, biased
 
     dev = torch.device("cuda")
-    n = screen_flush_len(H)
+    rows, n = _fast_batch_rows(dev), DEFAULT_CHUNK - K + 1
     db = biased(torch.unique(biased(random_i64(H - 1, gen))))
     db = torch.cat([db[db != EMPTY],
                     torch.full((1,), EMPTY, dtype=torch.int64, device=dev)])
     H = db.numel()
-    batch = random_i64(n, gen)
-    q = n // 4
-    batch[:q] = db[torch.randint(0, H, (q,), generator=gen, device=dev)]
-    batch[q : q + n // 100] = EMPTY
-    near = torch.randint(0, H - 1, (8,), generator=gen, device=dev)
-    batch[q + n // 100 : q + n // 100 + 24] = db[near].repeat(3)
-    batch = biased(torch.sort(biased(batch)).values)
-    counts0 = torch.randint(0, 1000, (H,), generator=gen, device=dev,
-                            dtype=torch.int32)
-    counts0[near] = INT32_MAX - 2
-    got, want = counts0.clone(), counts0.clone()
-    screen_kernel.screen_count(batch, db, got)
-    screen_kernel.screen_count_plain(batch, db, want)
+    h = random_i64(rows * n, gen)
+    q = h.numel() // 4
+    h[:q] = db[torch.randint(0, H, (q,), generator=gen, device=dev)]
+    h[q : q + 1000] = EMPTY
+    h = h[torch.randperm(h.numel(), generator=gen, device=dev)].view(rows, n)
+    v = torch.rand((rows, n), generator=gen, device=dev) >= 0.01
+
+    table = sk.build_table(db)
+    plain_table = sk.build_table_plain(db)
+    torch.cuda.synchronize()
+    occ, by_index = sk.table_contents(table)
+    occ_p, by_index_p = sk.table_contents(plain_table)
+    # DB indices whose stored key differs, and slots occupied in one table
+    # only
+    table_err = float(int((by_index != by_index_p).sum())
+                      + int((occ != occ_p).sum()))
+    require(table_err == 0.0 and torch.equal(by_index, db),
+            "screen_table H=%d disagrees" % H)
+    totals0 = torch.randint(2**32 - 1000, 2**32, (H,), generator=gen,
+                            device=dev)
+    got, want = totals0.clone(), totals0.clone()
+    sk.screen_count(h, v, table, got)
+    sk.screen_count_plain(h, v, table, want)
     torch.cuda.synchronize()
     err = max_abs_err([got], [want])
-    require(err == 0.0, "screen_count n=%d H=%d disagrees" % (n, H))
-    require(bool((got[near] == INT32_MAX).all()), "screen_count saturation")
-    work = counts0.clone()
-    ms = cuda_ms(lambda: screen_kernel.screen_count(batch, db, work))
-    plain_ms = cuda_ms(
-        lambda: screen_kernel.screen_count_plain(batch, db, work))
-    sb, sd = biased(batch), biased(db)
-    library_ms = cuda_ms(lambda: (torch.searchsorted(sb, sd, side="right"),
-                                  torch.searchsorted(sb, sd, side="left")))
-    # the batch and the DB read once, the counts read and written once;
-    # a merge of the two sorted arrays compares each element about once
-    bound_ms, bound_by = bound(8 * n + 8 * H + 8 * H, n + H)
+    require(err == 0.0, "screen_count n=%d H=%d disagrees" % (h.numel(), H))
+    require(int((got - totals0).sum()) >= q * 0.98, "screen_count missed "
+            "planted hashes")
+    work = totals0.clone()
+    ms = cuda_ms(lambda: sk.screen_count(h, v, table, work))
+    plain_ms = cuda_ms(lambda: sk.screen_count_plain(h, v, table, work))
+    # where the time goes: the batch alone (every lane invalid, so no
+    # probe), and probes without hits (random hashes, none from the DB)
+    stream_ms = cuda_ms(lambda: sk.screen_count(h, torch.zeros_like(v),
+                                                table, work))
+    misses = random_i64(h.numel(), gen).view(rows, n)
+    nohit_ms = cuda_ms(lambda: sk.screen_count(misses, v, table, work))
+    del misses
+    # yardstick: the same counts from the unsorted batch with a sort and
+    # two searches (the masked keys are made before the clock starts)
+    keys = torch.where(v, biased(h), torch.full_like(h, 2**63 - 1)).view(-1)
+    sd = biased(db)
+
+    def library():
+        sb = torch.sort(keys).values
+        return (torch.searchsorted(sb, sd, side="right")
+                - torch.searchsorted(sb, sd, side="left"))
+
+    library_ms = cuda_ms(library)
+    # what the function must move: the batch read once (8 + 1 bytes a
+    # lane), one 32-byte sector a probe that can hit (a valid lane other
+    # than 2^64-1) but at most the DB once (8 bytes a hash), and the totals
+    # read and written once
+    probes = int((v & (h != EMPTY)).sum())
+    bound_ms, bound_by = bound(
+        9 * h.numel() + min(32 * probes, 8 * H) + 16 * H, h.numel())
     report.append(dict(
-        name="screen_count", shape="flush n=%d, H=%d" % (n, H),
+        name="screen_count", shape="batch [%d, %d], H=%d" % (rows, n, H),
         max_abs_err=err, kernel_ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-        bound_by=bound_by, library_ms=library_ms, main=main))
+        bound_by=bound_by, library_ms=library_ms, main=main,
+        stream_ms=stream_ms, nohit_ms=nohit_ms))
+    if main:
+        ms = cuda_ms(lambda: sk.build_table(db))
+        plain_ms = cuda_ms(lambda: sk.build_table_plain(db))
+        # the DB read once and the table written once; an insert each
+        bound_ms, bound_by = bound(8 * H + 13 * (1 << table.bits), H)
+        report.append(dict(
+            name="screen_table", shape="H=%d, 2^%d slots" % (H, table.bits),
+            max_abs_err=table_err, kernel_ms=ms, plain_ms=plain_ms,
+            bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+            main=main))
+
+
+@contextlib.contextmanager
+def sort_sizes():
+    """Records, by calling module, the largest input of each
+    ``torch.sort`` call made inside the block."""
+    import torch
+
+    real, seen = torch.sort, {}
+
+    def sort(x, *args, **kwargs):
+        mod = sys._getframe(1).f_globals.get("__name__", "?")
+        seen[mod] = max(seen.get(mod, 0), x.numel())
+        return real(x, *args, **kwargs)
+
+    torch.sort = sort
+    try:
+        yield seen
+    finally:
+        torch.sort = real
 
 
 def _launch_counters():
@@ -670,12 +800,19 @@ def phase_screen(rng, folder, paths, all_msh, profile_device=False):
 
     def run_screen(name, argv):
         reset_launches()
-        out, wall = timed_cli(name, argv, GPU, profile_device, lambda w: {
-            "bases": bases, "bases_per_s": bases / w})
+        with sort_sizes() as sorts:
+            out, wall = timed_cli(name, argv, GPU, profile_device,
+                                  lambda w: {"bases": bases,
+                                             "bases_per_s": bases / w})
         launches = read_launches()
-        require(launches["screen_count"] > 0,
-                "%s did not launch screen_count" % name)
-        print("%s launches: %s" % (name, json.dumps(launches)), flush=True)
+        for kernel in ("screen_table", "screen_count"):
+            require(launches[kernel] > 0,
+                    "%s did not launch %s" % (name, kernel))
+        require(not any(m.startswith("mash_tpu_torch.ops.screen_")
+                        for m in sorts),
+                "%s sorted in the screen counter: %s" % (name, sorts))
+        print("%s launches: %s; largest torch.sort by module: %s"
+              % (name, json.dumps(launches), json.dumps(sorts)), flush=True)
         return out, wall, launches
 
     out, wall, launches = run_screen("screen", ["screen", db_msh, *paths])
@@ -754,13 +891,14 @@ def main(argv=None) -> int:
 
     rng = np.random.default_rng(args.seed)
     report = []
-    phase_kernels(rng, report)
     with tempfile.TemporaryDirectory(prefix="mash_smoke_") as folder:
+        phase_kernels(rng, report, folder)
         launches, paths, all_msh = phase_end_to_end(rng, folder, args.profile)
         screen_launches = phase_screen(rng, folder, paths, all_msh,
                                        args.profile)
     # each kernel's count from the run of the path that calls it
-    launches["screen_count"] = screen_launches["screen_count"]
+    for name in ("screen_table", "screen_count"):
+        launches[name] = screen_launches[name]
 
     sources = {
         "sketch_select": ("mash_tpu_torch/ops/csrc/sketch_select.cu",
@@ -770,6 +908,10 @@ def main(argv=None) -> int:
         "pairwise32": ("mash_tpu_torch/ops/csrc/pairwise.cu",
                        "mash_tpu/ops/pallas_pairwise.py:137"),
         "screen_count": ("mash_tpu_torch/ops/csrc/screen_count.cu",
+                         "mash_tpu/ops/pallas_screen.py:77"),
+        # the DB's table: K4's port keeps the DB in it instead of the TPU
+        # kernel's sorted tiles
+        "screen_table": ("mash_tpu_torch/ops/csrc/screen_count.cu",
                          "mash_tpu/ops/pallas_screen.py:77"),
     }
     kernels = []

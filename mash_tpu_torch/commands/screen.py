@@ -2,10 +2,10 @@
 
 Streams mixture files read-packed into chunks (the reference's 1 MiB
 ``*``-separated blocks, ``CommandScreen.cpp:192-270``), hashes them on
-the device, counts DB membership with the ``screen_count`` kernel over
-sorted batches (``ops.screen_ops.ScreenCounter``), and estimates the
-mixture's cardinality with the bottom-s fold.  Identity, p-value and
-median post-processing happen on the host.  One process, one device:
+the device, counts DB membership with the ``screen_count`` kernel, a
+probe of a hash table of the DB (``ops.screen_ops.ScreenCounter``), and
+estimates the mixture's cardinality with the bottom-s fold.  Identity,
+p-value and median post-processing happen on the host.  One process, one device:
 ``mash_tpu``'s multi-host sharding of the mixture is not ported.
 """
 

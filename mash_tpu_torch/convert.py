@@ -42,12 +42,6 @@ def db_table_from_numpy(db_hashes_u64, seg_starts, ref_ids, device="cpu"):
     )
 
 
-def counts_to_numpy(counts) -> np.ndarray:
-    """Non-negative DB-hash counts (int32 tensor) -> uint32 numpy, the
-    dtype of ``mash_tpu``'s finalized screen counts."""
-    return counts.cpu().numpy().astype(np.uint32)
-
-
 def params_from_numpy(ref_params) -> SketchParams:
     """The port's SketchParams with the same field values as a
     reference ``SketchParams`` (or a dict of its fields)."""

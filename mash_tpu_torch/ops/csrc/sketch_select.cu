@@ -14,19 +14,32 @@
 // and checks the exactness certificate; it falls back to the plain path
 // when the certificate fails.
 //
-// What bounds it on the H100: integer work.  Each window costs a k-byte
-// canonical compare, the packing of ceil(k/8) words and ~40 64-bit
-// multiply/rotate/xor steps (a 64-bit multiply is several 32-bit IMADs);
-// the input is read once (1 byte per window), so bytes are far below the
-// memory roof.  The subrow selection is a 2048-key bitonic sort in shared
-// memory, ~66 compare-exchange stages.
+// What bounds it on the H100: integer work.  Each window costs about a
+// hundred 32-bit integer instructions of MurmurHash3 (a 64-bit multiply,
+// shift or rotate is two or more of them); the input is read once (1 byte
+// per window), so bytes are far below the memory roof.
 //
-// What the design does about it: one block per subrow keeps the subrow's
-// bytes (C + k - 1 of them, uppercased once) and its 2048 keys in shared
-// memory, so nothing but m + 2 values per subrow goes back to device
-// memory.  Hashing is native uint64_t (the TPU kernel emulated it on
-// int32 lanes).  Unlike the TPU kernel, no halo tile is built on the host:
-// a block reads its k-1 halo bytes straight from the chunk row.
+// What the design does about it:
+//   - One block per subrow stages the subrow's C + k - 1 bytes, uppercased
+//     once, in shared memory.  Nothing but m + 2 values per subrow goes back
+//     to device memory, and no halo tile is built on the host.
+//   - Each thread takes W consecutive windows and rolls their packed words:
+//     the forward words shift one byte down and take the new byte on top,
+//     the reverse-complement words shift one byte up and take the new
+//     byte's complement at the bottom, and a count of non-alphabet bytes
+//     gains the new byte and drops the old one.  Each byte's complement
+//     and flag are staged beside it, and a thread's first state is read 8
+//     bytes at a time, so a window costs four byte loads and ceil(k/8)
+//     word shifts, not 3k byte loads.  memcmp order is
+//     the order of byte-swapped words (__byte_perm), so the canonical
+//     choice is ceil(k/8) word compares.  Hashing is native 64-bit.
+//   - For m < 32, each lane sorts its W keys in registers, each warp keeps
+//     its 32 smallest in a list across its lanes (bitonic merges with
+//     __shfl_xor_sync, one per round of each lane's next-smallest key,
+//     until no lane has a key below the list's largest), and warp 0 merges
+//     the warps' lists from shared memory.  Three block barriers in all.
+//   - For m >= 32 the subrow's C keys are bitonic-sorted in shared memory
+//     (66 barriered stages).
 //
 // A valid window whose hash is UINT64_MAX is indistinguishable from an
 // invalid one here and is dropped; the caller's all-captured certificate
@@ -39,20 +52,26 @@
 
 namespace {
 
-constexpr int C = 2048;        // windows per subrow (one block)
-constexpr int THREADS = 512;   // C / THREADS windows per thread
+typedef unsigned long long u64;
+
+constexpr int C = 2048;             // windows per subrow (one block)
+constexpr int THREADS = 256;
+constexpr int W = C / THREADS;      // consecutive windows per thread
+constexpr int WARPS = THREADS / 32;
 constexpr int KMAX = 32;
+constexpr int FAST_M = 32;          // m below this takes the warp selection
+constexpr unsigned FULL = 0xffffffffu;
 
 struct Luts {
   uint8_t alpha[256];  // 1 if the byte is in the alphabet
   uint8_t comp[256];   // complement byte of alphabet members, else 0
 };
 
-__device__ __forceinline__ uint64_t rotl64(uint64_t x, int r) {
+__device__ __forceinline__ u64 rotl64(u64 x, int r) {
   return (x << r) | (x >> (64 - r));
 }
 
-__device__ __forceinline__ uint64_t fmix64(uint64_t k) {
+__device__ __forceinline__ u64 fmix64(u64 k) {
   k ^= k >> 33;
   k *= 0xff51afd7ed558ccdULL;
   k ^= k >> 33;
@@ -61,31 +80,41 @@ __device__ __forceinline__ uint64_t fmix64(uint64_t k) {
   return k;
 }
 
-// MurmurHash3_x64_128 h1 over `len` bytes packed little-endian in w[].
-__device__ __forceinline__ uint64_t mmh3_h1(const uint64_t* w, int len,
-                                            uint32_t seed) {
-  const uint64_t c1 = 0x87c37b91114253d5ULL;
-  const uint64_t c2 = 0x4cf5ad432745937fULL;
-  uint64_t h1 = seed, h2 = seed;
-  const int nblocks = len / 16;
-  for (int b = 0; b < nblocks; ++b) {
-    uint64_t k1 = w[2 * b], k2 = w[2 * b + 1];
-    k1 *= c1; k1 = rotl64(k1, 31); k1 *= c2; h1 ^= k1;
-    h1 = rotl64(h1, 27); h1 += h2; h1 = h1 * 5 + 0x52dce729;
-    k2 *= c2; k2 = rotl64(k2, 33); k2 *= c1; h2 ^= k2;
-    h2 = rotl64(h2, 31); h2 += h1; h2 = h2 * 5 + 0x38495ab5;
+// MurmurHash3_x64_128 h1 over `len` bytes packed little-endian in the
+// NW = ceil(len / 8) words w[] (zero past len).  The tail's words are the
+// last one or two, so every index is known at compile time.
+template <int NW>
+__device__ __forceinline__ u64 mmh3_h1(const u64 (&w)[NW], int len,
+                                       uint32_t seed) {
+  const u64 c1 = 0x87c37b91114253d5ULL;
+  const u64 c2 = 0x4cf5ad432745937fULL;
+  u64 h1 = seed, h2 = seed;
+  const int nblocks = len >> 4;
+#pragma unroll
+  for (int b = 0; b < NW / 2; ++b) {
+    if (b < nblocks) {
+      u64 k1 = w[2 * b], k2 = w[2 * b + 1];
+      k1 *= c1; k1 = rotl64(k1, 31); k1 *= c2; h1 ^= k1;
+      h1 = rotl64(h1, 27); h1 += h2; h1 = h1 * 5 + 0x52dce729;
+      k2 *= c2; k2 = rotl64(k2, 33); k2 *= c1; h2 ^= k2;
+      h2 = rotl64(h2, 31); h2 += h1; h2 = h2 * 5 + 0x38495ab5;
+    }
   }
   const int tlen = len & 15;
-  if (tlen > 8) {
-    uint64_t k2 = w[2 * nblocks + 1];
-    k2 *= c2; k2 = rotl64(k2, 33); k2 *= c1; h2 ^= k2;
+  if constexpr (NW >= 2) {
+    if (tlen > 8) {  // words NW-2 (k1) and NW-1 (k2)
+      u64 k2 = w[NW - 1];
+      k2 *= c2; k2 = rotl64(k2, 33); k2 *= c1; h2 ^= k2;
+      u64 k1 = w[NW - 2];
+      k1 *= c1; k1 = rotl64(k1, 31); k1 *= c2; h1 ^= k1;
+    }
   }
-  if (tlen > 0) {
-    uint64_t k1 = w[2 * nblocks];
+  if (tlen > 0 && tlen <= 8) {  // word NW-1 (k1)
+    u64 k1 = w[NW - 1];
     k1 *= c1; k1 = rotl64(k1, 31); k1 *= c2; h1 ^= k1;
   }
-  h1 ^= (uint64_t)len;
-  h2 ^= (uint64_t)len;
+  h1 ^= (u64)len;
+  h2 ^= (u64)len;
   h1 += h2;
   h2 += h1;
   h1 = fmix64(h1);
@@ -93,30 +122,73 @@ __device__ __forceinline__ uint64_t mmh3_h1(const uint64_t* w, int len,
   return h1 + h2;
 }
 
+// memcmp order of little-endian packed bytes: compare byte-swapped words
+__device__ __forceinline__ u64 bswap64(u64 x) {
+  const unsigned lo = (unsigned)x, hi = (unsigned)(x >> 32);
+  return ((u64)__byte_perm(lo, 0, 0x0123) << 32) | __byte_perm(hi, 0, 0x0123);
+}
+
+__device__ __forceinline__ u64 min64(u64 a, u64 b) { return a < b ? a : b; }
+__device__ __forceinline__ u64 max64(u64 a, u64 b) { return a < b ? b : a; }
+
+// Bitonic sort of one key per lane across the warp, ascending by lane
+// (descending if desc).
+__device__ __forceinline__ u64 warp_sort(u64 x, bool desc) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int size = 2; size <= 32; size <<= 1) {
+#pragma unroll
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      const u64 y = __shfl_xor_sync(FULL, x, stride);
+      const bool up = ((lane & size) == 0) != desc;
+      x = (((lane & stride) == 0) == up) ? min64(x, y) : max64(x, y);
+    }
+  }
+  return x;
+}
+
+// A bitonic sequence across the warp -> ascending by lane.
+__device__ __forceinline__ u64 warp_merge(u64 x) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int stride = 16; stride > 0; stride >>= 1) {
+    const u64 y = __shfl_xor_sync(FULL, x, stride);
+    x = (lane & stride) == 0 ? min64(x, y) : max64(x, y);
+  }
+  return x;
+}
+
+template <int NW>
 __global__ void __launch_bounds__(THREADS)
 sketch_select_kernel(const uint8_t* __restrict__ chunks, int64_t L,
                      int64_t n, int R, Luts luts, int k, uint32_t seed,
                      int use64, int noncanonical, int preserve_case, int m,
-                     uint64_t* __restrict__ cand,
-                     uint64_t* __restrict__ boundary,
+                     u64* __restrict__ cand, u64* __restrict__ boundary,
                      int32_t* __restrict__ vcount) {
-  __shared__ uint64_t keys[C];
-  __shared__ uint8_t seq[C + KMAX];
+  __shared__ u64 keys[C];            // m >= FAST_M: the subrow's keys
+  __shared__ u64 lists[WARPS][32];   // m < FAST_M: each warp's 32 smallest
+  // the subrow's bytes, their complements and their non-alphabet flags, as
+  // words so that a thread can read 8 of them at once
+  constexpr int SEQ_WORDS = (C + KMAX) / 8 + 1;
+  __shared__ u64 seq_w[SEQ_WORDS], comp_w[SEQ_WORDS], bad_w[SEQ_WORDS];
   __shared__ uint8_t alpha[256];
   __shared__ uint8_t comp[256];
-  __shared__ int nvalid;
+  __shared__ int wcount[WARPS];
+  uint8_t* seq = reinterpret_cast<uint8_t*>(seq_w);
+  uint8_t* cseq = reinterpret_cast<uint8_t*>(comp_w);
+  uint8_t* badf = reinterpret_cast<uint8_t*>(bad_w);
 
   const int r = blockIdx.x;
   const int64_t b = blockIdx.y;
-  const int tid = threadIdx.x;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int64_t w0 = (int64_t)r * C;  // first window of this subrow
   const uint8_t* row = chunks + b * L;
 
-  if (tid < 256) {
-    alpha[tid] = luts.alpha[tid];
-    comp[tid] = luts.comp[tid];
+  for (int i = tid; i < 256; i += THREADS) {
+    alpha[i] = luts.alpha[i];
+    comp[i] = luts.comp[i];
   }
-  if (tid == 0) nvalid = 0;
+  __syncthreads();
   // bytes [w0, w0 + C + k - 1) of the row, uppercased; 0 past the row end
   for (int i = tid; i < C + k - 1; i += THREADS) {
     int64_t p = w0 + i;
@@ -126,42 +198,138 @@ sketch_select_kernel(const uint8_t* __restrict__ chunks, int64_t L,
       if (sc > 96 && sc < 123) c = (uint8_t)(c - 32);
     }
     seq[i] = c;
+    cseq[i] = comp[c];
+    badf[i] = !alpha[c];
   }
   __syncthreads();
 
+  // Rolling state of this thread's windows t0 .. t0 + W - 1: fwd holds the
+  // window's bytes little-endian (byte j of the k-mer at bits 8j), rev its
+  // reverse complement, bad its count of non-alphabet bytes.  They start
+  // as the state one byte short of window t0: bytes t0 .. t0 + k - 2,
+  // read 8 at a time (t0 is a multiple of 8), each window then pushes one
+  // byte.  Bytes past those are cut off below, or shifted out.
+  const int t0 = tid * W;
+  const int top = 8 * ((k - 1) & 7);  // bit of byte k-1 in word NW-1
+  const u64 topmask = (k & 7) ? (1ull << (8 * (k & 7))) - 1 : ~0ull;
+  u64 fwd[NW], rev[NW];
+  int bad = 0;
+  {
+    // fwd: bytes t0 .. t0 + k - 2 at places 1 .. k - 1
+    u64 prev = 0;
+#pragma unroll
+    for (int i = 0; i < NW; ++i) {
+      const u64 w = seq_w[t0 / 8 + i];
+      fwd[i] = (w << 8) | (prev >> 56);
+      prev = w;
+    }
+    fwd[NW - 1] &= topmask;
+    // rev: complements of bytes t0 + k - 2 .. t0 at places 0 .. k - 2, the
+    // 8NW complements from t0 on reversed, then shifted down d bytes
+    u64 rw[NW + 1];
+#pragma unroll
+    for (int i = 0; i < NW; ++i) rw[i] = bswap64(comp_w[t0 / 8 + NW - 1 - i]);
+    rw[NW] = 0;
+    const int d = 8 * NW - k + 1;  // 1 .. 8
+#pragma unroll
+    for (int i = 0; i < NW; ++i)
+      rev[i] = d == 8 ? rw[i + 1]
+                      : (rw[i] >> (8 * d)) | (rw[i + 1] << (64 - 8 * d));
+    // bad: the flags of bytes t0 .. t0 + k - 2, one byte each
+#pragma unroll
+    for (int i = 0; i < NW; ++i) {
+      const int count = k - 1 - 8 * i;  // flags of this word to count
+      u64 f = count > 0 ? bad_w[t0 / 8 + i] : 0;
+      if (count > 0 && count < 8) f &= (1ull << (8 * count)) - 1;
+      bad += (int)((f * 0x0101010101010101ull) >> 56);
+    }
+  }
+  auto push = [&](int p) {
+#pragma unroll
+    for (int i = 0; i < NW - 1; ++i)
+      fwd[i] = (fwd[i] >> 8) | (fwd[i + 1] << 56);
+    fwd[NW - 1] = (fwd[NW - 1] >> 8) | ((u64)seq[p] << top);
+#pragma unroll
+    for (int i = NW - 1; i > 0; --i)
+      rev[i] = (rev[i] << 8) | (rev[i - 1] >> 56);
+    rev[0] = (rev[0] << 8) | cseq[p];
+    rev[NW - 1] &= topmask;
+    bad += badf[p];
+  };
+
+  u64 key[W];
   int my_valid = 0;
-  for (int t = tid; t < C; t += THREADS) {
-    uint64_t key = ~0ULL;
-    if (w0 + t < n) {
-      const uint8_t* s = seq + t;
-      bool ok = true;
-      for (int j = 0; j < k; ++j) ok &= alpha[s[j]] != 0;
-      if (ok) {
-        bool fwd = true;
-        if (!noncanonical) {
-          for (int j = 0; j < k; ++j) {
-            uint8_t f = s[j], rv = comp[s[k - 1 - j]];
-            if (f != rv) {
-              fwd = f < rv;
-              break;
-            }
-          }
+#pragma unroll
+  for (int q = 0; q < W; ++q) {
+    push(t0 + q + k - 1);
+    if (q > 0) bad -= badf[t0 + q - 1];
+    bool use_fwd = true;
+    if (!noncanonical) {
+      // the first 8 bytes almost always decide
+      const u64 a = bswap64(fwd[0]), c = bswap64(rev[0]);
+      use_fwd = a < c;
+      if (a == c) {
+        use_fwd = true;
+#pragma unroll
+        for (int i = NW - 1; i > 0; --i) {
+          const u64 ai = bswap64(fwd[i]), ci = bswap64(rev[i]);
+          if (ai != ci) use_fwd = ai < ci;
         }
-        uint64_t w[4] = {0, 0, 0, 0};
-        for (int j = 0; j < k; ++j) {
-          uint8_t by = fwd ? s[j] : comp[s[k - 1 - j]];
-          w[j >> 3] |= (uint64_t)by << (8 * (j & 7));
-        }
-        uint64_t h = mmh3_h1(w, k, seed);
-        key = use64 ? h : (h & 0xffffffffULL);
-        ++my_valid;
       }
     }
-    keys[t] = key;
+    u64 words[NW];
+#pragma unroll
+    for (int i = 0; i < NW; ++i) words[i] = use_fwd ? fwd[i] : rev[i];
+    const u64 h = mmh3_h1<NW>(words, k, seed);
+    const bool ok = bad == 0 && w0 + t0 + q < n;
+    key[q] = ok ? (use64 ? h : (h & 0xffffffffull)) : ~0ull;
+    my_valid += ok;
   }
-  if (my_valid) atomicAdd(&nvalid, my_valid);
-  __syncthreads();
+  const int cnt = (int)__reduce_add_sync(FULL, (unsigned)my_valid);
+  if (lane == 0) wcount[warp] = cnt;
 
+  const int64_t out_row = b * R + r;
+  if (m < FAST_M) {
+    // each lane's keys ascending (odd-even transposition)
+#pragma unroll
+    for (int i = 0; i < W; ++i) {
+#pragma unroll
+      for (int j = i & 1; j + 1 < W; j += 2) {
+        const u64 a = key[j], c = key[j + 1];
+        key[j] = min64(a, c);
+        key[j + 1] = max64(a, c);
+      }
+    }
+    // the warp's 32 smallest, ascending by lane: merge in each lane's
+    // next-smallest key while any lane has one below the list's largest
+    u64 list = warp_sort(key[0], false);
+#pragma unroll
+    for (int q = 1; q < W; ++q) {
+      const u64 largest = __shfl_sync(FULL, list, 31);
+      if (!__any_sync(FULL, key[q] < largest)) break;
+      list = warp_merge(min64(list, warp_sort(key[q], true)));
+    }
+    lists[warp][lane] = list;
+    __syncthreads();
+    if (warp == 0) {
+#pragma unroll
+      for (int j = 1; j < WARPS; ++j)
+        list = warp_merge(min64(list, lists[j][31 - lane]));
+      if (lane < m) cand[out_row * m + lane] = list;
+      if (lane == m) boundary[out_row] = list;
+      if (lane == 0) {
+        int total = 0;
+#pragma unroll
+        for (int j = 0; j < WARPS; ++j) total += wcount[j];
+        vcount[out_row] = total;
+      }
+    }
+    return;
+  }
+
+#pragma unroll
+  for (int q = 0; q < W; ++q) keys[t0 + q] = key[q];
+  __syncthreads();
   // bitonic sort of the C keys, ascending
   for (int size = 2; size <= C; size <<= 1) {
     for (int stride = size >> 1; stride > 0; stride >>= 1) {
@@ -169,7 +337,7 @@ sketch_select_kernel(const uint8_t* __restrict__ chunks, int64_t L,
         int i = 2 * p - (p & (stride - 1));
         int j = i + stride;
         bool up = (i & size) == 0;
-        uint64_t a = keys[i], c = keys[j];
+        u64 a = keys[i], c = keys[j];
         if ((a > c) == up) {
           keys[i] = c;
           keys[j] = a;
@@ -178,12 +346,12 @@ sketch_select_kernel(const uint8_t* __restrict__ chunks, int64_t L,
       __syncthreads();
     }
   }
-
-  const int64_t out_row = b * R + r;
   for (int q = tid; q < m; q += THREADS) cand[out_row * m + q] = keys[q];
   if (tid == 0) {
     boundary[out_row] = keys[m];
-    vcount[out_row] = nvalid;
+    int total = 0;
+    for (int j = 0; j < WARPS; ++j) total += wcount[j];
+    vcount[out_row] = total;
   }
 }
 
@@ -207,8 +375,19 @@ extern "C" int sketch_select_launch(const uint8_t* chunks, int64_t B,
     luts.comp[i] = comp_lut[i];
   }
   dim3 grid(R, (unsigned)B);
-  sketch_select_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      chunks, L, n, R, luts, k, seed, use64, noncanonical, preserve_case, m,
-      cand, boundary, vcount);
+  cudaStream_t s = (cudaStream_t)stream;
+  u64* cd = reinterpret_cast<u64*>(cand);
+  u64* bd = reinterpret_cast<u64*>(boundary);
+#define SKETCH_SELECT_LAUNCH(NW)                                             \
+  sketch_select_kernel<NW><<<grid, THREADS, 0, s>>>(                         \
+      chunks, L, n, R, luts, k, seed, use64, noncanonical, preserve_case, m, \
+      cd, bd, vcount)
+  switch ((k + 7) / 8) {
+    case 1: SKETCH_SELECT_LAUNCH(1); break;
+    case 2: SKETCH_SELECT_LAUNCH(2); break;
+    case 3: SKETCH_SELECT_LAUNCH(3); break;
+    default: SKETCH_SELECT_LAUNCH(4); break;
+  }
+#undef SKETCH_SELECT_LAUNCH
   return (int)cudaGetLastError();
 }

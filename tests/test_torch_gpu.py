@@ -7,13 +7,17 @@ at first use) and carries the ``cuda`` marker; without a card the
     python -m pytest --noconftest -m cuda tests/test_torch_gpu.py
 
 Each kernel and its plain version run on the same CUDA tensors and must
-agree exactly (every output is an integer), at edge shapes that
-``chip_smoke.py``'s main-path shapes do not reach: a ragged last subrow,
-k at 1 and 32, the protein alphabet, uneven pair grids, sizes that are
-not powers of two, a cap below the sketch size, rows too wide for
-shared memory, and for ``screen_count`` empty and all-EMPTY batches, a
-DB smaller than one tile, a DB hash of 2^64-1, saturation, a skewed
-batch and a batch of more than 2^31 bytes.
+agree exactly (every output is an integer; a DB table by what it holds,
+since its atomic inserts place the keys of one probe run in any order),
+at edge shapes that ``chip_smoke.py``'s main-path shapes do not reach: a
+ragged last subrow, a row shorter than one subrow, k from 1 to 32, both
+hash widths, N-rich and lowercase input, candidate budgets on both sides
+of the warp selection's limit, the protein alphabet, uneven pair grids,
+sizes that are not powers of two, a cap below the sketch size, rows too
+wide for shared memory, and for ``screen_count`` empty and all-invalid
+batches, a DB of one hash, a DB hash of 2^64-1, valid 2^64-1 lanes,
+32-bit hashes, totals past 2^32, a stream of one repeated hash, a DB
+above ``BIG_DB_MIN`` and a batch of more than 2^31 bytes.
 """
 
 import contextlib
@@ -61,21 +65,34 @@ def _seq(seed, symbols, shape):
 
 
 @pytest.mark.parametrize(
-    "k,use64,noncanon,preserve,length",
-    [(21, True, False, False, 40000), (21, True, True, False, 50001),
-     (16, False, False, False, 40000), (1, False, False, True, 9000),
-     (32, True, False, False, 2 * sk.C + 31), (9, False, True, True, 70000)],
+    "k,use64,noncanon,preserve,length,symbols",
+    [(21, True, False, False, 40000, b"ACGTacgtNn\x00"),
+     (21, True, True, False, 50001, b"ACGTacgtNn\x00"),
+     (16, False, False, False, 40000, b"ACGTacgtNn\x00"),
+     (16, True, False, True, 30000, b"ACGTacgt"),
+     (1, False, False, True, 9000, b"ACGTacgtNn\x00"),
+     (32, True, False, False, 2 * sk.C + 31, b"ACGTacgtNn\x00"),
+     (32, False, True, False, 20000, b"ACGTACGTacgt"),
+     (31, True, False, False, 25000, b"ACGTNNNNn"),
+     (9, False, True, True, 70000, b"ACGTacgtNn\x00"),
+     (9, True, False, False, 12000, b"AAAAAAAACGTacgtN"),
+     (21, True, False, False, 1000, b"ACGTacgtNn\x00")],
+    ids=["k21", "k21_noncanon", "k16_32bit", "k16_64bit_case",
+         "k1_case", "k32_ragged", "k32_32bit_noncanon", "k31_n_rich",
+         "k9_noncanon_case", "k9_repetitive", "short_row"],
 )
 def test_sketch_select_matches_plain(gpu, k, use64, noncanon, preserve,
-                                     length):
-    x = torch.from_numpy(_seq(k + length, b"ACGTacgtNn\x00", (3, length)))
-    x = x.to(gpu)
+                                     length, symbols):
+    x = torch.from_numpy(_seq(k + length, symbols, (3, length))).to(gpu)
     kw = dict(alphabet=DNA, k=k, seed=42, use64=use64,
               noncanonical=noncanon, preserve_case=preserve)
-    for m in (16, 64):
+    # the warp selection takes m < 32, the block sort the rest
+    for m in (1, 16, 31, 32, 128, 256, 1024, sk.C - 1):
+        before = sk.LAUNCHES["sketch_select"]
         got = sk.sketch_select(x, **kw, m=m)
         want = sk.sketch_select_plain(x, **kw, m=m)
         torch.cuda.synchronize()
+        assert sk.LAUNCHES["sketch_select"] == before + 1
         for g, w in zip(got, want):
             assert torch.equal(g, w), (k, m)
 
@@ -206,54 +223,66 @@ def test_cli_cuda_matches_cpu(gpu, tmp_path, monkeypatch):
     assert pk.LAUNCHES["pairwise64"] > before[1]
 
 
-IMAX = 2**31 - 1
 SCREEN_CASES = ["random", "empty_batch", "all_empty", "tiny_db", "db_sentinel",
-                "saturation", "skewed"]
+                "saturation", "skewed", "one_hash", "bits32", "big_db"]
 
 
 def _screen_case(case):
-    """(batch [n] sorted as uint64, DB [H] sorted and distinct, int32
-    counts [H]) for one edge of ``screen_count``."""
+    """(hashes [4, n] in any order, validity, DB [H] sorted and distinct,
+    int64 totals [H]) for one edge of ``screen_count``."""
     rng = np.random.default_rng(SCREEN_CASES.index(case))
     n = 0 if case == "empty_batch" else 40000
+    H = {"tiny_db": 1, "big_db": 300_000}.get(case, 5000)
+    hi = 2**32 if case == "bits32" else 2**64 - 1
     if case == "skewed":  # every hash inside a tiny DB range
         db = np.unique(rng.integers(0, 1000, 2000)).astype(np.uint64)
         b = rng.integers(0, 1000, n).astype(np.uint64)
     else:
-        H = 100 if case == "tiny_db" else 5000
-        db = np.unique(rng.integers(0, 2**64 - 1, H, dtype=np.uint64))
+        db = np.unique(rng.integers(0, hi, H + 64, dtype=np.uint64))[:H]
         if case == "db_sentinel":
             db = np.unique(np.concatenate([db, [EMPTY]]))
-        b = rng.integers(0, 2**64 - 1, n, dtype=np.uint64)
+        b = rng.integers(0, hi, n, dtype=np.uint64)
         b[: n // 4] = db[rng.integers(0, len(db), n // 4)]
         b[n // 4 : n // 4 + 500] = EMPTY
-        if case == "all_empty":
-            b[:] = EMPTY
-        if case == "saturation":
-            b[:2000] = np.repeat(db[:8], 250)
-    c = rng.integers(0, 100, len(db)).astype(np.int32)
+        if case == "one_hash":
+            b[:] = db[len(db) // 2]
+        rng.shuffle(b)
+    v = rng.random(n) < 0.9
+    if case == "all_empty":
+        v[:] = False
+    c = rng.integers(0, 100, len(db))
     if case == "saturation":
-        c[:8] = IMAX - rng.integers(0, 3, 8).astype(np.int32)
-    return np.sort(b), db, c
+        c[:8] = 2**32 - rng.integers(1, 4, 8)
+    return b.reshape(4, -1), v.reshape(4, -1), db, c
 
 
 @pytest.mark.parametrize("case", SCREEN_CASES)
 def test_screen_count_matches_plain(gpu, case):
-    b, db, c = _screen_case(case)
-    batch, dbt = _t(b, gpu), _t(db, gpu)
+    b, v, db, c = _screen_case(case)
+    h, valid, dbt = _t(b, gpu), torch.from_numpy(v).to(gpu), _t(db, gpu)
     got = torch.from_numpy(c).to(gpu)
     want = got.clone()
-    before = sck.LAUNCHES["screen_count"]
-    sck.screen_count(batch, dbt, got)
-    sck.screen_count_plain(batch, dbt, want)
+    before = dict(sck.LAUNCHES)
+    table = sck.build_table(dbt)
+    sck.screen_count(h, valid, table, got)
+    plain = sck.build_table_plain(dbt)
+    sck.screen_count_plain(h, valid, plain, want)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+    occ, by_index = sck.table_contents(table)
+    occ_p, by_index_p = sck.table_contents(plain)
+    assert torch.equal(occ, occ_p) and torch.equal(by_index, by_index_p)
+    assert torch.equal(by_index, dbt)
+    assert sck.LAUNCHES["screen_table"] == before["screen_table"] + 1
     # no launch when there is nothing to count
-    assert sck.LAUNCHES["screen_count"] == before + (len(b) > 0)
+    assert sck.LAUNCHES["screen_count"] == before["screen_count"] + (
+        b.size > 0)
     if case == "saturation":
-        assert int(got[:8].min()) == IMAX
+        assert int(got[:8].min()) >= 2**32 - 3
     if case == "db_sentinel":
         assert int(got[-1]) == int(c[-1])  # left for the caller
+    if case == "one_hash":
+        assert int(got[len(db) // 2] - c[len(db) // 2]) == int(v.sum())
 
 
 def _random_i64(n, g, dev):
@@ -263,22 +292,23 @@ def _random_i64(n, g, dev):
 
 
 def test_screen_count_batch_over_2gib(gpu):
-    """A flush of more than 2^31 bytes: the C entry takes int64 sizes."""
+    """A batch of more than 2^31 bytes: the C entry takes int64 sizes."""
     n = (1 << 28) + 4099
     free, _total = torch.cuda.mem_get_info(gpu)
     if free < 16 * 8 * n:
         pytest.skip("needs about 35 GB of free device memory")
     g = torch.Generator(device=gpu).manual_seed(3)
     db = biased(torch.unique(biased(_random_i64(1 << 20, g, gpu))))
-    batch = _random_i64(n, g, gpu)
+    h = _random_i64(n, g, gpu)
     pick = torch.randint(0, db.numel(), (n // 4,), generator=g, device=gpu)
-    batch[: n // 4] = db[pick]
-    batch = biased(torch.sort(biased(batch)).values)
-    got = torch.zeros(db.numel(), dtype=torch.int32, device=gpu)
+    h[: n // 4] = db[pick]
+    v = torch.ones(n, dtype=torch.bool, device=gpu)
+    table = sck.build_table(db)
+    got = torch.zeros(db.numel(), dtype=torch.int64, device=gpu)
     want = got.clone()
     before = sck.LAUNCHES["screen_count"]
-    sck.screen_count(batch, db, got)
-    sck.screen_count_plain(batch, db, want)
+    sck.screen_count(h, v, table, got)
+    sck.screen_count_plain(h, v, table, want)
     torch.cuda.synchronize()
     assert sck.LAUNCHES["screen_count"] == before + 1
     assert torch.equal(got, want)
@@ -286,27 +316,31 @@ def test_screen_count_batch_over_2gib(gpu):
 
 
 def test_screen_counter_cuda_matches_cpu(gpu):
-    """The whole counter (queue, unsigned sort, kernel, EMPTY-valued DB
-    hash) with flushes of uneven chunk counts."""
+    """The whole counter (table, kernel, EMPTY-valued DB hash, seeded
+    totals that wrap at 2^32) over chunks of uneven lengths."""
     rng = np.random.default_rng(11)
     db = np.unique(np.concatenate(
         [rng.integers(0, 2**64 - 1, 3000, dtype=np.uint64), [EMPTY]]))
+    seed = rng.integers(0, 100, len(db))
+    seed[:50] = 2**32 - 1
     chunks = []
     for i in range(6):
         n = 5000 + 1000 * i
         h = rng.integers(0, 2**64 - 1, n, dtype=np.uint64)
         h[: n // 3] = db[rng.integers(0, len(db), n // 3)]
+        h[n // 3 : n // 3 + 9] = EMPTY
         chunks.append((h, rng.random(n) < 0.9))
     out = {}
     before = sck.LAUNCHES["screen_count"]
     for dev in ("cpu", "cuda"):
-        counter = so.ScreenCounter(_t(db, dev), flush_hashes=12000)
+        counter = so.ScreenCounter(_t(db, dev),
+                                   torch.from_numpy(seed).to(dev))
         for h, v in chunks:
             counter.add(_t(h, dev), torch.from_numpy(v).to(dev))
         out[dev] = counter.finalize()
     np.testing.assert_array_equal(out["cuda"], out["cpu"])
-    assert sck.LAUNCHES["screen_count"] > before
-    assert out["cpu"][-1] > 0  # the EMPTY-valued DB hash was counted
+    assert sck.LAUNCHES["screen_count"] == before + len(chunks)
+    assert out["cpu"][-1] > seed[-1]  # the EMPTY-valued DB hash was counted
 
 
 def test_screen_cli_cuda_matches_cpu(gpu, tmp_path, monkeypatch):

@@ -4,6 +4,9 @@ Inputs are made from numpy seeds and handed to both packages; every
 output is an integer (or a byte string), so the tolerance is exact
 equality.  ``mash_tpu``'s big-DB counter runs its Pallas kernel in
 interpret mode with the small tiles of ``tests/test_bigdb_screen.py``.
+Counts seeded at the limits hold the port's overflow rule against
+``mash_tpu``'s: uint32 counts that wrap for a DB of at most ``BIG_DB_MIN``
+hashes, int32 counts that saturate (``_accum``) above it.
 """
 
 import jax.numpy as jnp
@@ -15,7 +18,6 @@ from mash_tpu.core.params import default_nucleotide_params as j_params
 from mash_tpu.ops import screen_ops as jso
 from mash_tpu.ops import sketch_ops as jsk
 from mash_tpu_torch.convert import (
-    counts_to_numpy,
     db_table_from_numpy,
     params_from_numpy,
     state_from_numpy,
@@ -27,6 +29,7 @@ from mash_tpu_torch.ops import sketch_ops as tsketch
 
 SENT = np.uint64(0xFFFFFFFFFFFFFFFF)
 IMAX = np.iinfo(np.int32).max
+UMAX = np.iinfo(np.uint32).max
 
 
 def _t64(a):
@@ -125,30 +128,102 @@ def test_translate_frames(n):
 
 
 def test_accum_int32_wrap_boundary():
+    """``mash_tpu``'s saturating ``_accum`` against the port's big-DB
+    rule applied to the exact totals."""
     counts = np.array([IMAX - 1, IMAX - 3, 5, 0, IMAX, IMAX], np.int32)
     add = np.array([3, 1, 1, 0, 0, 7], np.int32)
     want = np.asarray(jso._accum(jnp.asarray(counts), jnp.asarray(add)))
-    got = tso._accum(torch.from_numpy(counts), torch.from_numpy(add))
-    assert got.dtype == torch.int32
-    np.testing.assert_array_equal(got.numpy(), want)
+    totals = torch.from_numpy(counts.astype(np.int64) + add)
+    got = tso.counts_from_totals(totals, big_db=True)
+    assert got.dtype == np.uint32
+    np.testing.assert_array_equal(got, want.astype(np.uint32))
     assert want[0] == IMAX and want[5] == IMAX
+
+
+def _seeded(rng, n, top):
+    """n random counts below 50, the first three just below ``top``."""
+    c = rng.integers(0, 50, n).astype(np.int64)
+    c[:3] = top - np.arange(1, 4)
+    return c
 
 
 @pytest.mark.parametrize("H", [2000, 40000])
 @pytest.mark.parametrize("sentinel", [False, True], ids=["plain", "sentinel"])
 def test_count_db_occurrences(H, sentinel):
     """``mash_tpu``'s compare-reduce (H = 2 000) and DB-side search
-    (H = 40 000) tiers against the port's one plain version."""
+    (H = 40 000) tiers with uint32 counts seeded just below 2^32, which
+    wrap, against the port's totals and small-DB rule."""
     rng = np.random.default_rng(H + sentinel)
     db = _db(rng, H, sentinel)
     h, v = _chunk(rng, db, 4096, sentinel)
-    c0 = rng.integers(0, 50, len(db) + 1).astype(np.int32)
-    c0[:3] = IMAX - 1  # saturation on the way
+    h[:64] = np.repeat(db[:3], [30, 20, 14])  # past the top on the way
+    v[:64] = True
+    c0 = _seeded(rng, len(db) + 1, 2**32)
     want = np.asarray(jso.count_db_occurrences(
-        jnp.asarray(h), jnp.asarray(v), jnp.asarray(db), jnp.asarray(c0)))
+        jnp.asarray(h), jnp.asarray(v), jnp.asarray(db),
+        jnp.asarray(c0.astype(np.uint32))))
     got = tso.count_db_occurrences(_t64(h), torch.from_numpy(v), _t64(db),
                                    torch.from_numpy(c0))
-    np.testing.assert_array_equal(got.numpy(), want)
+    assert got.dtype == torch.int64 and int(got[0]) > UMAX
+    np.testing.assert_array_equal(
+        tso.counts_from_totals(got[: len(db)], big_db=False), want[:-1])
+    assert want[0] < 100  # wrapped
+
+
+@pytest.mark.parametrize("H", [tso.BIG_DB_MIN, tso.BIG_DB_MIN + 1],
+                         ids=["at_big_db_min", "above_big_db_min"])
+def test_counter_overflow_rule_by_db_size(H):
+    """At ``BIG_DB_MIN`` DB hashes the counts wrap at 2^32 as ``mash_tpu``'s
+    uint32 counts do; one more and they saturate at 2^31-1 as its int32
+    big-DB counts do (``count_db_occurrences`` with int32 counts goes
+    through the same ``_accum``)."""
+    rng = np.random.default_rng(H)
+    db = np.unique(rng.integers(0, 2**64 - 1, H + 64, dtype=np.uint64))[:H]
+    assert len(db) == H
+    h, v = _chunk(rng, db, 4096)
+    h[:64] = np.repeat(db[:3], [30, 20, 14])
+    v[:64] = True
+    big = H > tso.BIG_DB_MIN
+    c0 = _seeded(rng, H + 1, IMAX + 1 if big else 2**32)
+    dtype = np.int32 if big else np.uint32
+    want = np.asarray(jso.count_db_occurrences(
+        jnp.asarray(h), jnp.asarray(v), jnp.asarray(db),
+        jnp.asarray(c0.astype(dtype))))[:-1].astype(np.uint32)
+    counter = tso.ScreenCounter(_t64(db), torch.from_numpy(c0[:H]))
+    counter.add(_t64(h), torch.from_numpy(v))
+    got = counter.finalize()
+    np.testing.assert_array_equal(got, want)
+    assert got[0] == IMAX if big else got[0] < 100  # saturated / wrapped
+
+
+@pytest.mark.parametrize("sentinel", [False, True], ids=["plain", "sentinel"])
+def test_screen_counter_wraps_as_plain_fold(sentinel):
+    """``mash_tpu``'s plain fold (the one-device tier of a small DB) with
+    its uint32 ``counts0`` seeded just below 2^32, against a seeded
+    :class:`ScreenCounter` fed by the port's ``hash_chunk``."""
+    from mash_tpu_torch.ops.kmers import alphabet_bytes, hash_chunk
+
+    rng = np.random.default_rng(31 + sentinel)
+    jp = j_params(21, 200)
+    tp = params_from_numpy(jp)
+    seq = np.frombuffer(b"ACGTACGTacgtN", np.uint8)[rng.integers(0, 13, 6000)]
+    th, tv = hash_chunk(torch.from_numpy(seq.copy()),
+                        alphabet=alphabet_bytes(tp.alphabet),
+                        k=tp.kmer_size, seed=tp.seed, use64=tp.use64,
+                        noncanonical=tp.noncanonical,
+                        preserve_case=tp.preserve_case)
+    occurring = np.unique(th[tv].numpy().view(np.uint64))
+    db = np.unique(np.concatenate(
+        [occurring[:300], rng.integers(0, 2**64 - 1, 500, dtype=np.uint64)]
+        + ([[SENT]] if sentinel else [])))
+    c0 = _seeded(rng, len(db) + 1, 2**32)
+    c0[-2] = 2**32 - 1  # the sentinel's or the last hash's count
+    fold = jso.make_screen_fold(jp, jnp.asarray(db), 200)
+    jc, _ = fold(jnp.asarray(c0.astype(np.uint32)), jsk.empty_state(200),
+                 jnp.asarray(seq))
+    counter = tso.ScreenCounter(_t64(db), torch.from_numpy(c0[:-1]))
+    counter.add(th, tv)
+    np.testing.assert_array_equal(counter.finalize(), np.asarray(jc)[:-1])
 
 
 def _tpu_counter(db, chunks, wblk, rw):
@@ -159,9 +234,9 @@ def _tpu_counter(db, chunks, wblk, rw):
     return counter.finalize()
 
 
-def _port_counter(db, chunks, flush):
+def _port_counter(db, chunks):
     dbt, _, _ = db_table_from_numpy(db, np.zeros(len(db) + 1), np.zeros(0))
-    counter = tso.ScreenCounter(dbt, flush_hashes=flush)
+    counter = tso.ScreenCounter(dbt)
     for h, v in chunks:
         counter.add(_t64(h), torch.from_numpy(v))
     return counter.finalize()
@@ -169,16 +244,15 @@ def _port_counter(db, chunks, flush):
 
 @pytest.mark.parametrize("sentinel", [False, True], ids=["plain", "sentinel"])
 def test_screen_counter_matches_bigdb_counter(sentinel):
-    """Chunks of two lengths; one flush per chunk and one at finalize."""
+    """Chunks of two lengths, each counted as it comes."""
     rng = np.random.default_rng(23)
     db = _db(rng, 2000, sentinel)
     chunks = [_chunk(rng, db, 4096 if i < 3 else 2048, sentinel)
               for i in range(5)]
     want = _tpu_counter(db, chunks, 4, 4)
-    for flush in (3000, 1 << 30):
-        got = _port_counter(db, chunks, flush)
-        assert got.dtype == np.uint32
-        np.testing.assert_array_equal(got, want)
+    got = _port_counter(db, chunks)
+    assert got.dtype == np.uint32
+    np.testing.assert_array_equal(got, want)
 
 
 def test_screen_counter_skewed_stream():
@@ -190,23 +264,77 @@ def test_screen_counter_skewed_stream():
     h = rng.integers(0, 1000, size=1 << 12, dtype=np.int64).astype(np.uint64)
     chunks = [(h, np.ones(1 << 12, dtype=bool))]
     want = _tpu_counter(db, chunks, 2, 2)
-    np.testing.assert_array_equal(_port_counter(db, chunks, 1 << 20), want)
+    np.testing.assert_array_equal(_port_counter(db, chunks), want)
 
 
 def test_screen_count_plain_edges():
-    """The kernel's plain version: empty and all-EMPTY batches, a DB hash
-    of 2^64-1 (left for the caller), saturation."""
-    db = _t64(np.array([3, 9, 2**63, SENT], np.uint64))
-    counts = torch.tensor([0, IMAX - 1, 7, 0], dtype=torch.int32)
-    tsk.screen_count(torch.zeros(0, dtype=torch.int64), db, counts)
-    tsk.screen_count(torch.full((5,), -1, dtype=torch.int64), db, counts)
-    assert counts.tolist() == [0, IMAX - 1, 7, 0]
-    batch = tsketch.biased(torch.sort(tsketch.biased(
-        _t64(np.array([9, 9, 9, 3, 2**63, SENT, SENT], np.uint64)))).values)
-    tsk.screen_count(batch, db, counts)
-    assert counts.tolist() == [1, IMAX, 8, 0]
+    """The kernel's plain version: empty and all-invalid batches, valid
+    EMPTY lanes, a DB hash of 2^64-1 (left for the caller), int64 totals
+    past 2^32."""
+    table = tsk.build_table(_t64(np.array([3, 9, 2**63, SENT], np.uint64)))
+    # on the CPU the count searches the DB: no slot is laid out
+    assert table.bits == 3 and table.keys.numel() == table.fp.numel() == 0
+    totals = torch.tensor([0, 2**33, 7, 0], dtype=torch.int64)
+    none = torch.zeros(0, dtype=torch.int64)
+    tsk.screen_count(none, none.bool(), table, totals)
+    h = _t64(np.array([9, 9, 9, 3, 2**63, SENT, SENT, 4], np.uint64))
+    tsk.screen_count(h, torch.zeros(8, dtype=torch.bool), table, totals)
+    assert totals.tolist() == [0, 2**33, 7, 0]
+    tsk.screen_count(h, torch.ones(8, dtype=torch.bool), table, totals)
+    assert totals.tolist() == [1, 2**33 + 3, 8, 0]
     with pytest.raises(ValueError):
-        tsk.screen_count(batch, db, counts.long())
+        tsk.screen_count(h, torch.ones(8, dtype=torch.bool), table,
+                         totals.int())
+    with pytest.raises(ValueError):
+        tsk.screen_count(h, torch.ones(7, dtype=torch.bool), table, totals)
+
+
+def _probe_all(table, keys):
+    """DB index of each key by linear probing of ``table`` (-1 if absent),
+    one key at a time."""
+    S = 1 << table.bits
+    slots = tsk.home_slots(_t64(keys), table.bits).tolist()
+    tk, ti = table.keys.tolist(), table.index.tolist()
+    out = []
+    for key, slot in zip(keys.view(np.int64).tolist(), slots):
+        while tk[slot] != key and tk[slot] != -1:
+            slot = (slot + 1) % S
+        out.append(ti[slot] if tk[slot] == key else -1)
+    return out
+
+
+@pytest.mark.parametrize("case", ["one", "two", "random", "sentinel",
+                                  "bits32", "small_ints", "only_sentinel"])
+def test_build_table_plain(case):
+    """Every DB hash but 2^64-1 is found by linear probing from its home
+    slot; the occupied slots are those of one-at-a-time inserts (linear
+    probing fills the same slots in any order); absent keys miss."""
+    rng = np.random.default_rng(len(case))
+    db = {"one": np.array([5], np.uint64),
+          "two": np.array([5, SENT], np.uint64),
+          "random": _db(rng, 3000),
+          "sentinel": _db(rng, 1500, sentinel=True),
+          "bits32": _db(rng, 2500, hi=2**32),
+          "small_ints": np.arange(1000, dtype=np.uint64),
+          "only_sentinel": np.array([SENT], np.uint64)}[case]
+    table = tsk.build_table_plain(_t64(db))
+    S = 1 << table.bits
+    assert S >= 2 * len(db) and S < 4 * max(1, len(db))
+    real = db != SENT
+    want = np.where(real, np.arange(len(db)), -1)
+    assert _probe_all(table, db) == want.tolist()
+    occ, by_index = tsk.table_contents(table)
+    assert torch.equal(by_index, _t64(db))
+    # one key at a time, in DB order
+    seq = np.full(S, False)
+    for slot in tsk.home_slots(_t64(db[real]), table.bits).tolist():
+        while seq[slot]:
+            slot = (slot + 1) % S
+        seq[slot] = True
+    np.testing.assert_array_equal(occ.numpy(), seq)
+    absent = rng.integers(0, 2**64 - 1, 200, dtype=np.uint64)
+    absent = absent[~np.isin(absent, db)]
+    assert _probe_all(table, absent) == [-1] * len(absent)
 
 
 def test_make_screen_fold_matches_mash_tpu():
@@ -250,7 +378,7 @@ def test_convert_db_table_roundtrip():
     np.testing.assert_array_equal(dbt.numpy().view(np.uint64), db)
     np.testing.assert_array_equal(segt.numpy(), seg)
     np.testing.assert_array_equal(idst.numpy(), ids)
-    c = counts_to_numpy(torch.tensor([0, IMAX], dtype=torch.int32))
-    assert c.dtype == np.uint32 and c.tolist() == [0, IMAX]
+    c = tso.counts_from_totals(torch.tensor([0, IMAX, 2**32 + 5]), False)
+    assert c.dtype == np.uint32 and c.tolist() == [0, IMAX, 5]
     h, c = state_from_numpy(db, np.ones(3))
     assert h.dtype == torch.int64
