@@ -17,7 +17,11 @@ Phases (any failure exits non-zero before the result lines):
    place the keys of one probe run in any order), timed with CUDA events
    (median of 7 after one warm-up); ``sketch_select`` on one genome
    file's rows, a full 32-row batch, k = 16, and one file's rows at
-   s = 5000 (m = 128); ``screen_table`` on a DB
+   s = 5000 (m = 128); ``pairwise64`` at 64 x 64 and 1024 x 1024 and
+   ``pairwise32`` at 1024 x 1024 and at the tile that
+   ``stream_pair_stripes`` launches (512 x 4096 rows, 3072 of them
+   zero-size pads, and none), each with the kernel's other route (a warp
+   a pair) timed beside its thread route; ``screen_table`` on a DB
    of 10^7 hashes and ``screen_count`` on one ``screen`` ingest batch
    against 10^7, 1.1e5 and 23 449 DB hashes, beside a sort of the batch
    and two ``torch.searchsorted`` calls (the yardstick), and again with
@@ -54,6 +58,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import hashlib
 import io
 import json
 import os
@@ -275,8 +280,9 @@ def kernel_families(per_name: dict) -> dict:
 
 
 def timed_cli(name, argv, env, profile_device: bool, extra=None):
-    """``run_cli`` with the command's wall time and stage breakdown
-    printed as one JSON line (with ``extra(wall)``'s keys, if given);
+    """``run_cli`` with the command's wall time, stage breakdown and
+    stdout hash printed as one JSON line (with ``extra(wall)``'s keys, if
+    given);
     returns stdout and the wall seconds."""
     import torch
 
@@ -296,7 +302,11 @@ def timed_cli(name, argv, env, profile_device: bool, extra=None):
         out = run_cli(argv, env)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    line.update(wall_s=wall, stages_s=pop_stage_totals())
+    # the hash of stdout without the run's temporary folder (every path
+    # argument lies in it), so that runs and commits compare
+    stable = out.replace(os.path.dirname(argv[-1]) + os.sep, "")
+    line.update(wall_s=wall, stages_s=pop_stage_totals(),
+                stdout_sha256=hashlib.sha256(stable.encode()).hexdigest())
     if extra is not None:
         line.update(extra(wall))
     print(json.dumps(line), flush=True)
@@ -457,7 +467,11 @@ def phase_kernels(rng, report, folder):
             plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
             library_ms=None, main=main))
 
-    def pairs(nq, nr, hq, hr, sq, sr, fn, plain_fn, name, width_bytes, main):
+    def pairs(hq, hr, sq, sr, fn, plain_fn, name, width_bytes, main,
+              shape=None, other=None):
+        """Times ``fn`` (its route for these shapes) and ``plain_fn``, and
+        the kernel's ``other`` route beside them if given."""
+        nq, nr = sq.numel(), sr.numel()
         got = fn(hq, sq, hr, sr, cap=S)
         want = plain_fn()
         torch.cuda.synchronize()
@@ -465,27 +479,39 @@ def phase_kernels(rng, report, folder):
         require(err == 0.0, "%s %dx%d disagrees" % (name, nq, nr))
         ms = cuda_ms(lambda: fn(hq, sq, hr, sr, cap=S))
         plain_ms = cuda_ms(plain_fn)
+        extra = {}
+        if other:
+            err_other = max_abs_err(fn(hq, sq, hr, sr, cap=S, route=other),
+                                    want)
+            require(err_other == 0.0, "%s %dx%d route %s disagrees"
+                    % (name, nq, nr, other))
+            extra = {"other_route": other, "other_route_ms": cuda_ms(
+                lambda: fn(hq, sq, hr, sr, cap=S, route=other))}
         nbytes = (nq + nr) * hq.shape[1] * width_bytes + (nq + nr) * 4 \
             + 2 * nq * nr * 4
-        # a linear merge of each pair compares every element once
-        nops = nr * int(sq.sum()) + nq * int(sr.sum())
+        # the capped walk reads denom + common elements of a pair whose
+        # rows are both full (it stops at the cap), none of a pair with a
+        # zero-size row
+        real = (sq[:, None] > 0) & (sr[None, :] > 0)
+        nops = int(((want[0].long() + want[1].long()) * real).sum())
         bound_ms, bound_by = bound(nbytes, nops)
         report.append(dict(
-            name=name, shape="%d x %d, s=%d" % (nq, nr, S), max_abs_err=err,
-            kernel_ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-            bound_by=bound_by, library_ms=None, main=main))
+            name=name, shape=shape or "%d x %d, s=%d" % (nq, nr, S),
+            max_abs_err=err, kernel_ms=ms, plain_ms=plain_ms,
+            bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+            main=main, **extra))
         return want
 
     sk = overlap_sketches(rng, N_BIG, S)
     H = torch.from_numpy(sk.view(np.int64)).to(dev)
     sizes = torch.full((N_BIG,), S, dtype=torch.int32, device=dev)
     small = H[:64].contiguous(), sizes[:64].contiguous()
-    pairs(64, 64, small[0], small[0], small[1], small[1],
+    pairs(small[0], small[0], small[1], small[1],
           pairwise_kernel.pairwise64,
           lambda: distance.pairwise_common_denom(
               small[0], small[1], small[0], small[1], cap=S),
           "pairwise64", 8, True)
-    want64 = pairs(N_BIG, N_BIG, H, H, sizes, sizes,
+    want64 = pairs(H, H, sizes, sizes,
                    pairwise_kernel.pairwise64,
                    lambda: distance.pairwise_common_denom(
                        H, sizes, H, sizes, cap=S),
@@ -493,18 +519,51 @@ def phase_kernels(rng, report, folder):
     kq, kr = distance.rank_compress(H, H)
     wq = pairwise_kernel.keys32_to_64(kq)
     wr = pairwise_kernel.keys32_to_64(kr)
-    want32 = pairs(N_BIG, N_BIG, kq, kr, sizes, sizes,
+    # 10^6 pairs take the thread route; the warp route is timed beside it
+    want32 = pairs(kq, kr, sizes, sizes,
                    pairwise_kernel.pairwise32,
                    lambda: distance.pairwise_common_denom(
                        wq, sizes, wr, sizes, cap=S),
-                   "pairwise32", 4, True)
+                   "pairwise32", 4, True, other="warp")
     require(all(torch.equal(a, b) for a, b in zip(want64, want32)),
             "rank_compress changed (common, denom)")
+    # from a child generator, so that the later inputs do not depend on
+    # the stream tiles' draws
+    child = rng.bit_generator.seed_seq.spawn(1)[0]
+    stream_tiles(np.random.default_rng(child), pairs)
     gen = torch.Generator(device=dev).manual_seed(int(rng.integers(2**31)))
     for H in SCREEN_H:
         screen_count_case(gen, H, H == SCREEN_H[0], report)
     screen_items(rng)
     print("phase kernels: ok", flush=True)
+
+
+def stream_tiles(rng, pairs) -> None:
+    """``pairwise32`` at the tile that ``stream_pair_stripes`` launches
+    (``row_block`` 512 query rows against ``tile_r`` 4096 reference
+    rows): a 1024-sketch reference set padded with 3072 zero-size rows,
+    and 4096 real rows."""
+    import numpy as np
+    import torch
+
+    from mash_tpu_torch.ops import distance, pairwise_kernel
+
+    dev = torch.device("cuda")
+    sk = overlap_sketches(rng, 4096, S)
+    H = torch.from_numpy(sk.view(np.int64)).to(dev)
+    full = torch.full((4096,), S, dtype=torch.int32, device=dev)
+    for real in (1024, 4096):
+        Hr, nr = H.clone(), full.clone()
+        Hr[real:], nr[real:] = -1, 0  # EMPTY pads, as _pad_rows_np makes
+        kq, kr = distance.rank_compress(H[:512].contiguous(), Hr)
+        wq = pairwise_kernel.keys32_to_64(kq)
+        wr = pairwise_kernel.keys32_to_64(kr)
+        nq = full[:512].contiguous()
+        pairs(kq, kr, nq, nr, pairwise_kernel.pairwise32,
+              lambda: distance.pairwise_common_denom(wq, nq, wr, nr, cap=S),
+              "pairwise32", 4, False,
+              "stream tile 512 x 4096 (%d real), s=%d" % (real, S),
+              other="warp")
 
 
 def screen_items(rng) -> None:

@@ -288,8 +288,7 @@ class CommandDistance(Command):
         n_cells = len(queries) * len(refs)
         if n_cells > STREAM_MIN_CELLS and cap < 65536:
             for i0, stripe in stream_pair_stripes(
-                qry_h, qry_n, ref_h, ref_n, cap, device,
-                use64=sketch_ref.params.use64,
+                qry_h, qry_n, ref_h, ref_n, cap, device
             ):
                 rows = min(stripe.shape[0], len(queries) - i0)
                 if rows <= 0:

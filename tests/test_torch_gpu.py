@@ -12,9 +12,13 @@ since its atomic inserts place the keys of one probe run in any order),
 at edge shapes that ``chip_smoke.py``'s main-path shapes do not reach: a
 ragged last subrow, a row shorter than one subrow, k from 1 to 32, both
 hash widths, N-rich and lowercase input, candidate budgets on both sides
-of the warp selection's limit, the protein alphabet, uneven pair grids,
-sizes that are not powers of two, a cap below the sketch size, rows too
-wide for shared memory, and for ``screen_count`` empty and all-invalid
+of the warp selection's limit, the protein alphabet, for the pair kernels
+the capped walk's traps (identical and disjoint rows, zero-size rows,
+widths around a warp, a cap below the sizes and above their sum), tiles
+cut short, rows too wide for shared memory, the streamed path's tile
+with its pad rows, a grid of 75 000 tiles, a real 32-bit hash 0xFFFFFFFF
+and the streamed path against its CPU run, and for ``screen_count``
+empty and all-invalid
 batches, a DB of one hash, a DB hash of 2^64-1, valid 2^64-1 lanes,
 32-bit hashes, totals past 2^32, a stream of one repeated hash, a DB
 above ``BIG_DB_MIN`` and a batch of more than 2^31 bytes.
@@ -142,16 +146,16 @@ def test_sketch_chunks_fused_large_s(gpu, s):
     assert torch.equal(H, Hp) and torch.equal(C, Cp)
 
 
-def _sketches(rng, n, s, universe, bits=64):
+def _sketches(rng, n, s, universe, bits=64, full=False):
     H = np.full((n, s), EMPTY)
     N = np.zeros(n, np.int32)
     for i in range(n):
-        m = int(rng.integers(max(1, s // 2), s + 1))
+        m = s if full else int(rng.integers(max(1, s // 2), s + 1))
         vals = rng.choice(universe, size=m, replace=False).astype(np.uint64)
         if bits == 64:
             vals = vals * np.uint64(0x9E3779B97F4A7C15)
         else:
-            vals = (vals * np.uint64(2654435761)) % np.uint64(2**32 - 1)
+            vals = (vals * np.uint64(2654435761)) % np.uint64(2**32)
         H[i, :m] = np.sort(vals)
         N[i] = m
     return H, N
@@ -162,34 +166,127 @@ def _t(a, dev):
         a.view(np.int64) if a.dtype == np.uint64 else a).to(dev)
 
 
-@pytest.mark.parametrize(
-    "nq,nr,s,cap",
-    [(5, 9, 40, 40), (33, 70, 17, 10), (100, 37, 1000, 900),
-     (64, 64, 1000, 1000), (3, 5, 30000, 30000)],
-    ids=["small", "cap_below_s", "uneven", "square", "wider_than_smem"],
-)
-def test_pairwise_matches_plain(gpu, nq, nr, s, cap):
-    rng = np.random.default_rng(nq * 100 + nr)
-    qh, qn = _sketches(rng, nq, s, 3 * s)
-    rh, rn = _sketches(rng, nr, s, 3 * s)
+# (NQ, NR, s, cap) of random rows, half to fully filled
+PAIR_SHAPES = {
+    "small": (5, 9, 40, 40), "cap_below_s": (33, 70, 17, 10),
+    "uneven": (100, 37, 1000, 900), "square": (64, 64, 1000, 1000),
+    "wider_than_smem": (3, 5, 30000, 30000), "s1": (13, 17, 1, 1),
+    "s31": (13, 17, 31, 31), "s32": (13, 17, 32, 32), "s33": (13, 17, 33, 33),
+    "cap_above_sizes": (9, 11, 50, 1000), "ragged_tiles": (9, 7, 200, 150),
+    "one_tile_row": (6, 10, 5000, 5000),
+}
+PAIR_CASES = list(PAIR_SHAPES) + ["identical", "disjoint", "empty_rows",
+                                  "stream_tile", "tall_grid"]
+
+
+def _pair_case(case):
+    """(qry, nq, ref, nr, cap) numpy rows of one edge of the pair kernels:
+    the walk's traps (every element a match and on every lane boundary,
+    no match, zero-size rows, widths around a warp, a cap below the sizes
+    and above their sum), tiles cut short, one tile row a block (s = 5000)
+    and rows read from global memory (s = 30000), the streamed path's
+    tile with its zero-size pad rows, and a grid of 75 000 query tiles."""
+    rng = np.random.default_rng(PAIR_CASES.index(case))
+    if case in PAIR_SHAPES:
+        nq, nr, s, cap = PAIR_SHAPES[case]
+        universe = 2 * s + 1 if s < 40 else 3 * s
+        return (*_sketches(rng, nq, s, universe),
+                *_sketches(rng, nr, s, universe), cap)
+    if case in ("identical", "disjoint"):
+        qh, qn = _sketches(rng, 20, 1000, 10**6, full=True)
+        rh = qh if case == "identical" else qh ^ np.uint64(1)
+        if case == "disjoint":
+            rh = np.sort(rh, axis=1)
+        return qh, qn, rh, qn.copy(), 1000
+    if case == "empty_rows":
+        qh, qn = _sketches(rng, 12, 300, 900)
+        rh, rn = _sketches(rng, 19, 300, 900)
+        qh[::3], qn[::3] = EMPTY, 0
+        rh[1::2], rn[1::2] = EMPTY, 0
+        return qh, qn, rh, rn, 300
+    if case == "stream_tile":  # 1024 real reference rows padded to 4096
+        qh, qn = _sketches(rng, 512, 1000, 3000)
+        rh, rn = _sketches(rng, 1024, 1000, 3000)
+        rh = np.concatenate([rh, np.full((3072, 1000), EMPTY)])
+        return qh, qn, rh, np.concatenate([rn, np.zeros(3072, np.int32)]), \
+            1000
+    if case == "tall_grid":
+        n = 600_000
+        qh = (rng.integers(0, 3, (n, 1)).astype(np.uint64)
+              * np.uint64(0x9E3779B97F4A7C15))
+        qn = (rng.random(n) < 0.9).astype(np.int32)
+        qh[qn == 0] = EMPTY
+        rh = np.array([[0], [0x9E3779B97F4A7C15]], np.uint64)
+        return qh, qn, rh, np.ones(2, np.int32), 1
+    raise ValueError(case)
+
+
+# the widest rows of the thread route's tile (pairwise_kernel's docstring)
+THREAD_MAX_W = {8: 599, 4: 1199}
+
+
+@pytest.mark.parametrize("route", ["auto", "warp", "thread"])
+@pytest.mark.parametrize("case", PAIR_CASES)
+def test_pairwise_matches_plain(gpu, case, route):
+    qh, qn, rh, rn, cap = _pair_case(case)
     Q, NQ, R, NR = (_t(a, gpu) for a in (qh, qn, rh, rn))
     want = td.pairwise_common_denom(Q, NQ, R, NR, cap=cap)
-    got64 = pk.pairwise64(Q, NQ, R, NR, cap=cap)
     kq, kr = td.rank_compress(Q, R)
-    got32 = pk.pairwise32(kq, NQ, kr, NR, cap=cap)
-    torch.cuda.synchronize()
-    for got in (got64, got32):
+    for name, fn, q, r in (("pairwise64", pk.pairwise64, Q, R),
+                           ("pairwise32", pk.pairwise32, kq, kr)):
+        before = pk.LAUNCHES[name]
+        if route == "thread" and q.shape[1] > THREAD_MAX_W[q.element_size()]:
+            with pytest.raises(RuntimeError):
+                fn(q, NQ, r, NR, cap=cap, route=route)
+            assert pk.LAUNCHES[name] == before
+            continue
+        got = fn(q, NQ, r, NR, cap=cap, route=route)
+        torch.cuda.synchronize()
+        assert pk.LAUNCHES[name] == before + 1
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    if case == "identical":
+        assert bool((want[0].diagonal() == cap).all())
 
 
 def test_pairwise32_on_32bit_hashes(gpu):
+    """k <= 16 hashes, most rows ending in the real hash 0xFFFFFFFF: the
+    CUDA route ranks them, so none reads as the 32-bit pad key."""
     rng = np.random.default_rng(1)
     qh, qn = _sketches(rng, 20, 300, 900, bits=32)
     rh, rn = _sketches(rng, 13, 300, 900, bits=32)
+    for H, N in ((qh, qn), (rh, rn)):
+        H[np.arange(len(N) - 1), N[:-1] - 1] = 0xFFFFFFFF
     Q, NQ, R, NR = (_t(a, gpu) for a in (qh, qn, rh, rn))
     want = td.pairwise_common_denom(Q, NQ, R, NR, cap=250)
+    before = pk.LAUNCHES["pairwise32"]
     got = td.pairwise_common_denom_auto(Q, NQ, R, NR, cap=250, use64=False)
+    assert pk.LAUNCHES["pairwise32"] == before + 1
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    probe = _t(np.array([[5, 9, 0xFFFFFFFF], [5, 7, 0xFFFFFFFF]],
+                        np.uint64), gpu)
+    n = torch.full((2,), 3, dtype=torch.int32, device=gpu)
+    c, d = td.pairwise_common_denom_auto(probe[:1], n[:1], probe[1:], n[1:],
+                                         cap=10, use64=False)
+    assert (int(c[0, 0]), int(d[0, 0])) == (2, 4)
+
+
+@pytest.mark.parametrize("bits", [64, 32], ids=["64bit", "32bit"])
+def test_stream_pair_stripes_cuda_matches_cpu(gpu, bits):
+    """The streamed path ranks once per command on the card, for either
+    hash width (32-bit rows ending in the real hash 0xFFFFFFFF), and
+    launches ``pairwise32`` once a tile."""
+    rng = np.random.default_rng(2 + (bits == 64))
+    qh, qn = _sketches(rng, 40, 300, 900, bits=bits)
+    rh, rn = _sketches(rng, 70, 300, 900, bits=bits)
+    if bits == 32:
+        qh[np.arange(40), qn - 1] = 0xFFFFFFFF
+    out = {}
+    before = pk.LAUNCHES["pairwise32"]
+    for dev in ("cuda", "cpu"):
+        out[dev] = np.concatenate([st for _, st in td.stream_pair_stripes(
+            qh, qn, rh, rn, 250, dev, row_block=16, tile_r=32)])
+    np.testing.assert_array_equal(out["cuda"], out["cpu"])
+    assert pk.LAUNCHES["pairwise32"] == before + 3 * 3
 
 
 def test_cli_cuda_matches_cpu(gpu, tmp_path, monkeypatch):
