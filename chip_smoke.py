@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
-"""Smoke test of mash_tpu_torch on one GPU: sketch -> dist, then screen.
+"""Smoke test of mash_tpu_torch on one GPU: sketch -> dist, screen, reads,
+per-record sketches and triangles.
 
 Run from the root of a checkout on a machine with an NVIDIA H100 and the
 CUDA toolkit:
 
-    python3 chip_smoke.py [--seed N] [--profile]
+    python3 chip_smoke.py [--seed N] [--profile | --host-profile]
 
 Phases (any failure exits non-zero before the result lines):
 
@@ -16,8 +17,9 @@ Phases (any failure exits non-zero before the result lines):
    integer; the DB table by what it holds, since the atomic inserts
    place the keys of one probe run in any order), timed with CUDA events
    (median of 7 after one warm-up); ``sketch_select`` on one genome
-   file's rows, a full 32-row batch, k = 16, and one file's rows at
-   s = 5000 (m = 128); ``pairwise64`` at 64 x 64 and 1024 x 1024 and
+   file's rows, a full 32-row batch, k = 16, one file's rows at
+   s = 5000 (m = 128), and the 16-row batches of ``sketch -i`` in the
+   64 KiB and 256 KiB buckets; ``pairwise64`` at 64 x 64 and 1024 x 1024 and
    ``pairwise32`` at 1024 x 1024 and at the tile that
    ``stream_pair_stripes`` launches (512 x 4096 rows, 3072 of them
    zero-size pads, and none), each with the kernel's other route (a warp
@@ -37,17 +39,33 @@ Phases (any failure exits non-zero before the result lines):
    random ones (about 10^7 distinct hashes), and ``taxscreen`` against
    the 64 sketches with taxid comments and a tiny taxonomy; ``screen``
    and ``taxscreen`` of one genome cross-checked against the CPU's plain
-   path.
+   path;
+6. reads and per-record sketches: ``sketch -r`` (the ingest route) and
+   ``sketch -r -m 2`` (hashes on the card, the native heap) of two FASTQ
+   files of 500 000 reads of genome 0 (150 Mbase), each read sketch's
+   nearest genome and its sharing with 1024 unrelated sketches, and
+   ``sketch -i`` of 4096 plasmid-like records (256 families of 16);
+   cross-checked against the CPU's plain path on the first 20 000 reads
+   and the first 64 records;
+7. ``triangle`` of the 4096 record sketches (the streamed path; then
+   ``pairwise32`` on its last stripe against its plain version, timed as
+   in phase 3), ``triangle -E -d 0.15`` of them (every edge within a
+   family) and ``triangle`` of the 64 genome sketches (``pairwise64``);
+   cross-checked against the CPU's plain path on the first 128 record
+   sketches and the 64 genomes, and ``paste``, ``info`` and ``bounds``
+   under the GPU's and the CPU's environment.
 
 Every kernel's launch count is reset just before each main-path command
-of phases 4 and 5 and read just after it; the kernels that command runs
+of phases 4 to 7 and read just after it; the kernels that command runs
 must have launched, and no ``torch.sort`` call of the screen counter may
 be left on the screen commands' path.  Each main-path command prints one
 JSON line with its wall seconds and the wall seconds of its stages
 (``mash_tpu_torch.utils.stage``); with ``--profile`` the line also holds
 the share of that wall time in which the card ran a kernel
 (``torch.profiler``, CUDA activity only), the kernels that took most of
-it, and the device time grouped by kernel family (by kernel name).
+it, and the device time grouped by kernel family (by kernel name); with
+``--host-profile`` it holds the ten host functions (``cProfile``) with the
+most time of their own.
 
 The last three lines of stdout are the card's ``nvidia-smi`` name and
 power limit, a ``{"kernels": [...]}`` summary and
@@ -259,7 +277,7 @@ KERNEL_FAMILIES = (
     ("screen_count", ("screen_count",)),
     ("screen_table", ("screen_table",)),
     ("sketch_select", ("sketch_select",)),
-    ("pairwise", ("pairwise",)),
+    ("pairwise", ("pairwise", "thread_kernel", "warp_kernel")),
     ("sort", ("sort",)),
     ("topk", ("topk",)),
     ("elementwise", ("elementwise",)),
@@ -279,11 +297,12 @@ def kernel_families(per_name: dict) -> dict:
     return out
 
 
-def timed_cli(name, argv, env, profile_device: bool, extra=None):
+def timed_cli(name, argv, env, profile, extra=None, stderr=None):
     """``run_cli`` with the command's wall time, stage breakdown and
     stdout hash printed as one JSON line (with ``extra(wall)``'s keys, if
-    given);
-    returns stdout and the wall seconds."""
+    given); returns stdout, the wall seconds and the line.  ``profile``
+    "device" adds the card's busy share (``torch.profiler``), "host" the
+    ten host functions with the most time of their own (``cProfile``)."""
     import torch
 
     from mash_tpu_torch.utils.profiling import pop_stage_totals
@@ -291,15 +310,29 @@ def timed_cli(name, argv, env, profile_device: bool, extra=None):
     pop_stage_totals()
     torch.cuda.synchronize()
     line = {"command": name}
-    if profile_device:
-        out, wall, busy, per_name = device_profile(lambda: run_cli(argv, env))
+    if profile == "host":
+        import cProfile
+        import pstats
+
+        prof = cProfile.Profile()
+        t0 = time.perf_counter()
+        out = prof.runcall(run_cli, argv, env, stderr)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        stats = pstats.Stats(prof).stats
+        top = sorted(stats.items(), key=lambda kv: -kv[1][2])[:10]
+        line["host_top_s"] = {"%s:%d(%s)" % (os.path.basename(f), ln, fn): t
+                              for (f, ln, fn), (_, _, t, _, _) in top}
+    elif profile == "device":
+        out, wall, busy, per_name = device_profile(
+            lambda: run_cli(argv, env, stderr))
         top = sorted(per_name.items(), key=lambda kv: -kv[1])[:8]
         line.update(device_busy_s=busy, device_busy_share=busy / wall,
                     top_kernels_s=dict(top),
                     kernel_families_s=kernel_families(per_name))
     else:
         t0 = time.perf_counter()
-        out = run_cli(argv, env)
+        out = run_cli(argv, env, stderr)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     # the hash of stdout without the run's temporary folder (every path
@@ -310,18 +343,22 @@ def timed_cli(name, argv, env, profile_device: bool, extra=None):
     if extra is not None:
         line.update(extra(wall))
     print(json.dumps(line), flush=True)
-    return out, wall
+    return out, wall, line
 
 
-def run_cli(argv, env=None) -> str:
-    """Drive ``mash_tpu_torch``'s CLI in-process; returns stdout."""
+def run_cli(argv, env=None, stderr=None) -> str:
+    """Drive ``mash_tpu_torch``'s CLI in-process; returns stdout.  With a
+    list as ``stderr``, the command's stderr is appended to it (and still
+    written to this process's stderr)."""
     from mash_tpu_torch.__main__ import main
 
     old = {k: os.environ.get(k) for k in (env or {})}
     os.environ.update(env or {})
-    buf = io.StringIO()
+    buf, err = io.StringIO(), io.StringIO()
     try:
-        with contextlib.redirect_stdout(buf):
+        with contextlib.redirect_stdout(buf), contextlib.ExitStack() as st:
+            if stderr is not None:
+                st.enter_context(contextlib.redirect_stderr(err))
             rc = main(argv)
     finally:
         for k, v in old.items():
@@ -329,6 +366,9 @@ def run_cli(argv, env=None) -> str:
                 os.environ.pop(k, None)
             else:
                 os.environ[k] = v
+        if stderr is not None:
+            stderr.append(err.getvalue())
+            sys.stderr.write(err.getvalue())
     require(rc in (0, None), "mash_tpu_torch %s exited %s" % (argv, rc))
     return buf.getvalue()
 
@@ -412,17 +452,56 @@ def write_genomes(rng, folder: str):
 
 # -- phases ---------------------------------------------------------------
 
+def sketch_select_case(report, chunks, k, use64, s, main, hash_instr,
+                       launches_from=None):
+    """``sketch_select`` and ``sketch_chunks_fused`` on ``chunks`` against
+    their plain versions, timed, with the kernel's bound."""
+    import torch
+
+    from mash_tpu_torch.ops import sketch_kernel
+    from mash_tpu_torch.ops.sketch_ops import candidate_budget
+
+    rows, length = chunks.shape
+    n = length - k + 1
+    m = candidate_budget(s, sketch_kernel.C, n)
+    kw = dict(alphabet=tuple(b"ACGT"), k=k, seed=42, use64=use64,
+              noncanonical=False, preserve_case=False)
+    got = sketch_kernel.sketch_select(chunks, **kw, m=m)
+    want = sketch_kernel.sketch_select_plain(chunks, **kw, m=m)
+    torch.cuda.synchronize()
+    err = max_abs_err(got, want)
+    require(err == 0.0, "sketch_select k=%d [%d, %d] disagrees"
+            % (k, rows, length))
+    fused = sketch_kernel.sketch_chunks_fused(chunks, **kw, s=s)
+    plain = sketch_kernel.sketch_chunks_plain(chunks, **kw, s=s)
+    require(torch.equal(fused[0], plain[0])
+            and torch.equal(fused[1], plain[1]),
+            "sketch_chunks_fused k=%d [%d, %d] disagrees" % (k, rows, length))
+    ms = cuda_ms(lambda: sketch_kernel.sketch_select(chunks, **kw, m=m))
+    plain_ms = cuda_ms(
+        lambda: sketch_kernel.sketch_select_plain(chunks, **kw, m=m))
+    nbytes = rows * length + got[0].numel() * 8 + got[1].numel() * 8 \
+        + got[2].numel() * 4
+    # every window's hash on the busier of the two integer pipes; the
+    # rolling, canonical choice and selection are left out, so this is
+    # a lower bound
+    bound_ms, bound_by = bound(nbytes, rows * n * max(hash_instr[k].values()))
+    report.append(dict(
+        name="sketch_select", shape="[%d, %d] k=%d use64=%s m=%d"
+        % (rows, length, k, use64, m), max_abs_err=err, kernel_ms=ms,
+        plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+        library_ms=None, main=main, launches_from=launches_from))
+
+
 def phase_kernels(rng, report, folder):
     """Each kernel against its plain version at main-path shapes."""
     import numpy as np
     import torch
 
     from mash_tpu_torch.core.engine import DEFAULT_CHUNK
-    from mash_tpu_torch.ops import distance, pairwise_kernel, sketch_kernel
-    from mash_tpu_torch.ops.sketch_ops import candidate_budget
+    from mash_tpu_torch.ops import distance, pairwise_kernel
 
     dev = torch.device("cuda")
-    alphabet = tuple(b"ACGT")
     length = DEFAULT_CHUNK
     full = torch.from_numpy(random_chunks(rng, 32, length)).to(dev)
     # each genome file is one batch of the chunks its windows need; a
@@ -435,37 +514,8 @@ def phase_kernels(rng, report, folder):
     for k, use64, rows, s, main in (
             (K, True, file_rows, S, True), (K, True, 32, S, False),
             (16, False, 32, S, False), (K, True, file_rows, 5000, False)):
-        chunks = full[:rows].contiguous()
-        n = length - k + 1
-        m = candidate_budget(s, sketch_kernel.C, n)
-        kw = dict(alphabet=alphabet, k=k, seed=42, use64=use64,
-                  noncanonical=False, preserve_case=False)
-        got = sketch_kernel.sketch_select(chunks, **kw, m=m)
-        want = sketch_kernel.sketch_select_plain(chunks, **kw, m=m)
-        torch.cuda.synchronize()
-        err = max_abs_err(got, want)
-        require(err == 0.0, "sketch_select k=%d disagrees" % k)
-        fused = sketch_kernel.sketch_chunks_fused(chunks, **kw, s=s)
-        plain = sketch_kernel.sketch_chunks_plain(chunks, **kw, s=s)
-        require(torch.equal(fused[0], plain[0])
-                and torch.equal(fused[1], plain[1]),
-                "sketch_chunks_fused k=%d disagrees" % k)
-        ms = cuda_ms(lambda: sketch_kernel.sketch_select(chunks, **kw, m=m))
-        plain_ms = cuda_ms(
-            lambda: sketch_kernel.sketch_select_plain(chunks, **kw, m=m))
-        windows = rows * n
-        nbytes = rows * length + got[0].numel() * 8 + got[1].numel() * 8 \
-            + got[2].numel() * 4
-        # every window's hash on the busier of the two integer pipes; the
-        # rolling, canonical choice and selection are left out, so this is
-        # a lower bound
-        bound_ms, bound_by = bound(nbytes,
-                                   windows * max(hash_instr[k].values()))
-        report.append(dict(
-            name="sketch_select", shape="[%d, %d] k=%d use64=%s m=%d"
-            % (rows, length, k, use64, m), max_abs_err=err, kernel_ms=ms,
-            plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-            library_ms=None, main=main))
+        sketch_select_case(report, full[:rows].contiguous(), k, use64, s,
+                           main, hash_instr)
 
     def pairs(hq, hr, sq, sr, fn, plain_fn, name, width_bytes, main,
               shape=None, other=None):
@@ -531,6 +581,13 @@ def phase_kernels(rng, report, folder):
     # the stream tiles' draws
     child = rng.bit_generator.seed_seq.spawn(1)[0]
     stream_tiles(np.random.default_rng(child), pairs)
+    # the per-record rows of ``sketch -i`` (16 to a launch) in the 64 KiB
+    # and 256 KiB buckets, from a second child generator
+    child = np.random.default_rng(rng.bit_generator.seed_seq.spawn(1)[0])
+    for bucket in (1 << 16, 1 << 18):
+        rows = torch.from_numpy(random_chunks(child, 16, bucket)).to(dev)
+        sketch_select_case(report, rows, K, True, S, False, hash_instr,
+                           launches_from="sketch_i")
     gen = torch.Generator(device=dev).manual_seed(int(rng.integers(2**31)))
     for H in SCREEN_H:
         screen_count_case(gen, H, H == SCREEN_H[0], report)
@@ -721,7 +778,7 @@ def read_launches() -> dict:
     return {name: n for c in _launch_counters() for name, n in c.items()}
 
 
-def phase_end_to_end(rng, folder, profile_device=False):
+def phase_end_to_end(rng, folder, profile=None):
     """sketch -> dist through the CLI, with every counter reset first."""
     import numpy as np
 
@@ -749,17 +806,17 @@ def phase_end_to_end(rng, folder, profile_device=False):
     command_registry()  # import every command before the clocks start
     reset_launches()
 
-    _, t_sketch = timed_cli(
+    _, t_sketch, _ = timed_cli(
         "sketch", ["sketch", "-k", str(K), "-s", str(S), "-o", all_msh,
-                   *paths], gpu, profile_device)
+                   *paths], gpu, profile)
     bases = N_GENOMES * GENOME_LEN
     require(sketch_kernel.LAUNCHES["sketch_select"] > 0,
             "sketch did not launch sketch_select")
     print("sketch: %d bases in %.3f s = %.4g bases/s"
           % (bases, t_sketch, bases / t_sketch), flush=True)
 
-    out, t_dist = timed_cli("dist_4096", ["dist", all_msh, all_msh], gpu,
-                            profile_device)
+    out, t_dist, _ = timed_cli("dist_4096", ["dist", all_msh, all_msh], gpu,
+                            profile)
     require(pairwise_kernel.LAUNCHES["pairwise64"] > 0,
             "dist of 4096 pairs did not launch pairwise64")
     lines = out.splitlines()
@@ -771,8 +828,8 @@ def phase_end_to_end(rng, folder, profile_device=False):
     print("dist 4096 pairs in %.3f s; e.g. %s" % (t_dist, lines[1]),
           flush=True)
 
-    big_out, t_big = timed_cli("dist_1M", ["dist", big_msh, big_msh], gpu,
-                               profile_device)
+    big_out, t_big, _ = timed_cli("dist_1M", ["dist", big_msh, big_msh], gpu,
+                               profile)
     require(pairwise_kernel.LAUNCHES["pairwise32"] > 0,
             "dist of 10^6 pairs did not launch pairwise32")
     big_lines = big_out.splitlines()
@@ -813,7 +870,7 @@ TAX_NAMES = ("1\t|\troot\t|\t\t|\tscientific name\t|\n"
              "563\t|\tEscherichia other\t|\t\t|\tscientific name\t|\n")
 
 
-def phase_screen(rng, folder, paths, all_msh, profile_device=False):
+def phase_screen(rng, folder, paths, all_msh, profile=None):
     """screen, screen -w and taxscreen of the 64 genomes through the CLI,
     each with every launch counter reset just before it; then screen and
     taxscreen of one genome on the card and on the CPU."""
@@ -858,21 +915,17 @@ def phase_screen(rng, folder, paths, all_msh, profile_device=False):
     bases = N_GENOMES * GENOME_LEN
 
     def run_screen(name, argv):
-        reset_launches()
+        counts = {}
         with sort_sizes() as sorts:
-            out, wall = timed_cli(name, argv, GPU, profile_device,
-                                  lambda w: {"bases": bases,
-                                             "bases_per_s": bases / w})
-        launches = read_launches()
-        for kernel in ("screen_table", "screen_count"):
-            require(launches[kernel] > 0,
-                    "%s did not launch %s" % (name, kernel))
+            out, line = counted_cli(
+                name, argv, ("screen_table", "screen_count"), profile, counts,
+                lambda w: {"bases": bases, "bases_per_s": bases / w})
         require(not any(m.startswith("mash_tpu_torch.ops.screen_")
                         for m in sorts),
                 "%s sorted in the screen counter: %s" % (name, sorts))
-        print("%s launches: %s; largest torch.sort by module: %s"
-              % (name, json.dumps(launches), json.dumps(sorts)), flush=True)
-        return out, wall, launches
+        print("%s largest torch.sort by module: %s"
+              % (name, json.dumps(sorts)), flush=True)
+        return out, line["wall_s"], counts[name]
 
     out, wall, launches = run_screen("screen", ["screen", db_msh, *paths])
     print("screen: %d bases against %d DB hashes in %.3f s = %.4g bases/s"
@@ -913,13 +966,313 @@ def phase_screen(rng, folder, paths, all_msh, profile_device=False):
     print("phase screen: ok", flush=True)
     return launches
 
+# -- reads, per-record sketches and triangles (phases 6 and 7) -------------
+
+N_READS = 500_000  # per file; two files: 150 Mbase, about 36x of a genome
+READ_LEN = 150
+N_FAMILIES = 256
+FAMILY_SIZE = 16
+FAMILY_LEN = (2000, 256000)  # log-uniform, bases
+N_CROSS_READS = 20_000  # a file over the 4 MiB fast-ingest gate
+
+
+def complement_table():
+    import numpy as np
+
+    comp = np.arange(256, dtype=np.uint8)
+    for a, b in (b"AT", b"CG", b"at", b"cg"):
+        comp[a], comp[b] = b, a
+    return comp
+
+
+def write_reads(rng, genome, path, n, tag: bytes):
+    """FASTQ of n reads of ``genome`` (uint8 bases): every other read
+    reverse-complemented, 1 % substitutions, records of fixed width."""
+    import numpy as np
+
+    pos = rng.integers(0, genome.size - READ_LEN + 1, n)
+    seq = genome[pos[:, None] + np.arange(READ_LEN)]
+    hit = rng.random(seq.shape) < 0.01
+    seq[hit] = np.frombuffer(b"ACGT", np.uint8)[
+        rng.integers(0, 4, int(hit.sum()))]
+    seq[1::2] = complement_table()[seq[1::2, ::-1]]
+    head = 2 + 7 + 1  # "@" tag digits "\n"
+    rec = np.empty((n, head + READ_LEN + 3 + READ_LEN + 1), np.uint8)
+    rec[:, 0] = ord("@")
+    rec[:, 1] = tag[0]
+    rec[:, 2:9] = (np.arange(n)[:, None] // 10 ** np.arange(6, -1, -1)) \
+        % 10 + ord("0")
+    rec[:, 9] = ord("\n")
+    rec[:, head : head + READ_LEN] = seq
+    rec[:, head + READ_LEN : head + READ_LEN + 3] = np.frombuffer(b"\n+\n",
+                                                                 np.uint8)
+    rec[:, head + READ_LEN + 3 : -1] = ord("I")
+    rec[:, -1] = ord("\n")
+    with open(path, "wb") as f:
+        f.write(rec.tobytes())
+
+
+def write_plasmids(rng, path) -> int:
+    """A multi-FASTA of N_FAMILIES families of FAMILY_SIZE members: each
+    family a random sequence of log-uniform length over FAMILY_LEN, each
+    member a copy with 0.5-5 % substitutions.  Returns its bases."""
+    import numpy as np
+
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    lengths = np.exp(rng.uniform(*np.log(FAMILY_LEN),
+                                 N_FAMILIES)).astype(np.int64)
+    with open(path, "wb") as f:
+        for fam, length in enumerate(lengths):
+            base = rng.integers(0, 4, length)
+            for j in range(FAMILY_SIZE):
+                hit = rng.random(length) < rng.uniform(0.005, 0.05)
+                codes = base.copy()
+                codes[hit] = (codes[hit] + rng.integers(1, 4, int(hit.sum()))
+                              ) % 4
+                f.write(b">fam%03d_m%02d family %d member %d\n%s\n"
+                        % (fam, j, fam, j, acgt[codes].tobytes()))
+    return int(lengths.sum()) * FAMILY_SIZE
+
+
+def counted_cli(name, argv, kernels, profile, cmd_launches, extra,
+                stderr=None):
+    """``timed_cli`` on the card with every launch counter reset just
+    before; the kernels named must have launched.  The counts go to
+    ``cmd_launches[name]``; returns stdout and the JSON line."""
+    reset_launches()
+    out, _, line = timed_cli(name, argv, GPU, profile, extra, stderr)
+    cmd_launches[name] = launches = read_launches()
+    for kernel in kernels:
+        require(launches[kernel] > 0, "%s did not launch %s" % (name, kernel))
+    print("%s launches: %s" % (name, json.dumps(launches)), flush=True)
+    return out, line
+
+
+def shared_by_name(dist_out: str) -> dict:
+    """``{reference: shared hashes}`` from ``dist`` lines."""
+    return {f[0]: int(f[4].split("/")[0])
+            for f in (ln.split("\t") for ln in dist_out.splitlines())}
+
+
+def phase_reads(rng, folder, paths, all_msh, cmd_launches,
+                profile=None):
+    """sketch -r, sketch -r -m 2 and sketch -i through the CLI, each with
+    every launch counter reset just before it; then the reads' nearest
+    genomes and cross-checks against the CPU."""
+    import numpy as np
+
+    from mash_tpu_torch.io import capnp_msh
+
+    with open(paths[0], "rb") as f:
+        f.readline()
+        genome = np.frombuffer(f.read().replace(b"\n", b""), np.uint8)
+    t0 = time.perf_counter()
+    reads = [os.path.join(folder, "reads_R%d.fq" % i) for i in (1, 2)]
+    for i, path in enumerate(reads):
+        write_reads(rng, genome, path, N_READS, b"ab"[i : i + 1])
+    plasmids = os.path.join(folder, "plasmids.fa")
+    plasmid_bases = write_plasmids(rng, plasmids)
+    print("wrote 2 x %d reads and %d plasmid records (%d bases) in %.1f s"
+          % (N_READS, N_FAMILIES * FAMILY_SIZE, plasmid_bases,
+             time.perf_counter() - t0), flush=True)
+    read_bases = 2 * N_READS * READ_LEN
+
+    def run(name, argv, bases, kernels):
+        msh = argv[argv.index("-o") + 1]
+
+        def extra(wall):
+            with open(msh, "rb") as f:
+                digest = hashlib.sha256(f.read()).hexdigest()
+            return {"bases": bases, "bases_per_s": bases / wall,
+                    "msh_sha256": digest}
+
+        err = []
+        out, line = counted_cli(name, argv, kernels, profile, cmd_launches,
+                                extra, err)
+        return out, err[0], line
+
+    reads_msh = os.path.join(folder, "reads.msh")
+    m2_msh = os.path.join(folder, "reads_m2.msh")
+    _, err, _ = run("sketch_reads", ["sketch", "-r", "-o", reads_msh,
+                                     *reads], read_bases, ["sketch_select"])
+    print("sketch -r estimates: %s" % " | ".join(
+        ln for ln in err.splitlines() if ln.startswith("Estimated")))
+    _, err, line = run("sketch_reads_m2", ["sketch", "-r", "-m", "2", "-o",
+                                           m2_msh, *reads], read_bases, [])
+    require("engine:hash_bytes" in line["stages_s"],
+            "sketch -r -m 2 did not take the exact route")
+    print("sketch -r -m 2 estimates: %s" % " | ".join(
+        ln for ln in err.splitlines() if ln.startswith("Estimated")))
+
+    # the reads' sketches against the 64 genomes (genome 1 differs from
+    # genome 0 in 0.08 % of its bases, so it may tie) and against the
+    # 1024 unrelated synthetic sketches of phase 4
+    big_msh = os.path.join(folder, "big.msh")
+    for msh in (reads_msh, m2_msh):
+        shared = shared_by_name(run_cli(["dist", all_msh, msh], GPU))
+        g0 = shared[paths[0]]
+        require(g0 == max(shared.values()) and g0 > shared[paths[-1]],
+                "genome 0 is not the nearest to the reads: %s" % shared)
+        unrelated = shared_by_name(run_cli(["dist", big_msh, msh], GPU))
+        require(max(unrelated.values()) <= S // 100,
+                "an unrelated sketch shares more than 1%% of s with the "
+                "reads: %d" % max(unrelated.values()))
+        print("%s: genome 0 shares %d/%d, genome %d %d; unrelated at most %d"
+              % (os.path.basename(msh), g0, S, N_GENOMES - 1,
+                 shared[paths[-1]], max(unrelated.values())), flush=True)
+
+    plasmids_msh = os.path.join(folder, "plasmids.msh")
+    run("sketch_i", ["sketch", "-i", "-o", plasmids_msh, plasmids],
+        plasmid_bases, ["sketch_select"])
+    msh = capnp_msh.read_msh(plasmids_msh)
+    require(len(msh.references) == N_FAMILIES * FAMILY_SIZE
+            and all(len(r.hashes) and np.all(r.hashes[1:] > r.hashes[:-1])
+                    for r in msh.references),
+            "plasmids.msh does not hold %d sorted sketches"
+            % (N_FAMILIES * FAMILY_SIZE))
+
+    # cross-checks against the CPU's plain path
+    head = os.path.join(folder, "reads_head.fq")
+    with open(reads[0], "rb") as f, open(head, "wb") as g:
+        g.write(f.read(N_CROSS_READS * (2 * READ_LEN + 14)))
+    first = os.path.join(folder, "plasmids_head.fa")
+    with open(plasmids, "rb") as f, open(first, "wb") as g:
+        g.writelines(f.readline() for _ in range(2 * 64))
+    for opts, src in ((["-r"], head), (["-r", "-m", "2"], head),
+                      (["-i"], first)):
+        got = []
+        for dev, env in (("gpu", GPU), ("cpu", CPU)):
+            out = os.path.join(folder, "cross_%s" % dev)
+            run_cli(["sketch", *opts, "-o", out, src], env, [])
+            with open(out + ".msh", "rb") as f:
+                got.append(f.read())
+        require(got[0] == got[1], "sketch %s .msh bytes differ from the "
+                "CPU's" % " ".join(opts))
+    print("phase reads: ok", flush=True)
+    return plasmids_msh
+
+
+def triangle_stripe_case(report, plasmids_msh):
+    """``pairwise32`` on the last stripe of the plasmids' streamed
+    triangle (512 query rows against 4095 columns of rank keys, in the
+    stream's tiles of 2048) against its plain version."""
+    import torch
+
+    from mash_tpu_torch.io import capnp_msh
+    from mash_tpu_torch.ops import distance, pairwise_kernel
+
+    refs = capnp_msh.read_msh(plasmids_msh).references
+    n = len(refs)
+    H, N = distance.pad_sketches([r.hashes for r in refs],
+                                 max(S, max(len(r.hashes) for r in refs)))
+    Hd, Nd = distance._upload(H, N, "cuda")
+    keys, _ = distance.rank_compress(Hd, Hd[:0])
+    i0, rows, tile_r = n - 512, 512, 2048
+    cols = i0 + rows - 1
+    q, nq = keys[i0:].contiguous(), Nd[i0:].contiguous()
+
+    def stripe():
+        out = [pairwise_kernel.pairwise32(q, nq, keys[ri : ri + tile_r],
+                                          Nd[ri : ri + tile_r], cap=S)
+               for ri in range(0, cols, tile_r)]
+        return [torch.cat([o[j] for o in out], dim=1)[:, :cols]
+                for j in (0, 1)]
+
+    wq = pairwise_kernel.keys32_to_64(q)
+    wr = pairwise_kernel.keys32_to_64(keys[:cols].contiguous())
+
+    def plain():
+        return distance.pairwise_common_denom(wq, nq, wr, Nd[:cols], cap=S)
+
+    got, want = stripe(), plain()
+    torch.cuda.synchronize()
+    err = max_abs_err(got, want)
+    require(err == 0.0, "pairwise32 on the triangle's last stripe disagrees")
+    ms, plain_ms = cuda_ms(stripe), cuda_ms(plain)
+    nbytes = (rows + cols) * keys.shape[1] * 4 + (rows + cols) * 4 \
+        + 2 * rows * cols * 4
+    real = (nq[:, None] > 0) & (Nd[None, :cols] > 0)
+    nops = int(((want[0].long() + want[1].long()) * real).sum())
+    bound_ms, bound_by = bound(nbytes, nops)
+    report.append(dict(
+        name="pairwise32", shape="triangle stripe %d x %d of %d sketches "
+        "(tiles of %d), s=%d" % (rows, cols, n, tile_r, S),
+        max_abs_err=err, kernel_ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+        bound_by=bound_by, library_ms=None, main=False,
+        launches_from="triangle_4096"))
+
+
+def phase_triangle(report, folder, paths, all_msh, plasmids_msh,
+                   cmd_launches, profile=None):
+    """triangle of the plasmids (streamed) and of the 64 genomes through
+    the CLI, each with every launch counter reset just before it; then
+    the host commands and cross-checks against the CPU."""
+    from mash_tpu_torch.io import capnp_msh
+
+    n = N_FAMILIES * FAMILY_SIZE
+
+    def run(name, argv, kernels, cells):
+        return counted_cli(name, argv, kernels, profile, cmd_launches,
+                           lambda w: {"cells": cells,
+                                      "cells_per_s": cells / w})[0]
+
+    cells = n * (n - 1) // 2
+    out = run("triangle_4096", ["triangle", plasmids_msh], ["pairwise32"],
+              cells)
+    lines = out.splitlines()
+    require(lines[0] == "\t%d" % n and len(lines) == n + 1
+            and all(ln.count("\t") == i for i, ln in enumerate(lines[1:])),
+            "triangle of %d sketches is not a lower triangle" % n)
+    triangle_stripe_case(report, plasmids_msh)
+
+    edges = run("triangle_edges", ["triangle", "-E", "-d", "0.15",
+                                   plasmids_msh], ["pairwise32"], cells)
+    pairs = [ln.split("\t")[:2] for ln in edges.splitlines()]
+    require(pairs and all(a[:6] == b[:6] for a, b in pairs),
+            "an edge joins two families")
+    print("triangle -E -d 0.15: %d edges, all within a family (%d pairs "
+          "within families)" % (len(pairs), N_FAMILIES * FAMILY_SIZE
+                                * (FAMILY_SIZE - 1) // 2), flush=True)
+
+    out_64 = run("triangle_64", ["triangle", all_msh], ["pairwise64"],
+                 N_GENOMES * (N_GENOMES - 1) // 2)
+
+    # cross-checks against the CPU's plain path
+    head = os.path.join(folder, "plasmids_128.msh")
+    msh = capnp_msh.read_msh(plasmids_msh)
+    capnp_msh.write_msh(head, msh.params, msh.references[:128])
+    require(run_cli(["triangle", head], CPU).splitlines()[2:129]
+            == lines[2:129], "rows 1-127 of the plasmid triangle differ "
+            "from the CPU's")
+    got = [[run_cli(["triangle", all_msh], env, err), err]
+           for env, err in ((GPU, []), (CPU, []))]
+    require(got[0][0] == out_64 and got[0] == got[1],
+            "triangle of the 64 genomes differs from the CPU's")
+    for argv in (["info", "-t", plasmids_msh], ["info", "-d", all_msh],
+                 ["bounds"]):
+        require(run_cli(argv, GPU) == run_cli(argv, CPU),
+                "%s differs between the GPU's and the CPU's environment"
+                % " ".join(argv[:2]))
+    pasted = []
+    for dev, env in (("gpu", GPU), ("cpu", CPU)):
+        out = os.path.join(folder, "pasted_%s" % dev)
+        run_cli(["paste", out, all_msh, plasmids_msh], env)
+        with open(out + ".msh", "rb") as f:
+            pasted.append(f.read())
+    require(pasted[0] == pasted[1], "paste .msh bytes differ")
+    print("phase triangle: ok", flush=True)
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--profile", action="store_true",
+    ap.add_argument("--profile", action="store_const", const="device",
                     help="also measure each main-path command's device "
                     "busy share with torch.profiler")
+    ap.add_argument("--host-profile", action="store_const", const="host",
+                    dest="profile", help="instead, run each main-path "
+                    "command under cProfile and list its ten costliest "
+                    "host functions")
     args = ap.parse_args(argv)
 
     if not os.path.isdir(os.path.join(ROOT, "mash_tpu_torch")):
@@ -955,6 +1308,11 @@ def main(argv=None) -> int:
         launches, paths, all_msh = phase_end_to_end(rng, folder, args.profile)
         screen_launches = phase_screen(rng, folder, paths, all_msh,
                                        args.profile)
+        cmd_launches = {}
+        plasmids_msh = phase_reads(rng, folder, paths, all_msh, cmd_launches,
+                                   args.profile)
+        phase_triangle(report, folder, paths, all_msh, plasmids_msh,
+                       cmd_launches, args.profile)
     # each kernel's count from the run of the path that calls it
     for name in ("screen_table", "screen_count"):
         launches[name] = screen_launches[name]
@@ -975,8 +1333,12 @@ def main(argv=None) -> int:
     }
     kernels = []
     for r in report:
-        print(json.dumps({**{k: v for k, v in r.items() if k != "main"},
-                          "launches": launches[r["name"]]}), flush=True)
+        # a shape off phases 4-5 reports the launches of the command that
+        # runs it
+        runs = cmd_launches.get(r.get("launches_from"), launches)
+        print(json.dumps({**{k: v for k, v in r.items()
+                             if k not in ("main", "launches_from")},
+                          "launches": runs[r["name"]]}), flush=True)
         if r["main"]:
             src, rep = sources[r["name"]]
             kernels.append(dict(

@@ -1,7 +1,8 @@
-"""``mash sketch`` (reference ``CommandSketch.cpp``) for genomes.
+"""``mash sketch`` (reference ``CommandSketch.cpp``).
 
-Reads mode (``-r``, ``-m``, ``-b``, ``-c``, ``-g``), ``-i``, ``-W`` and
-``-M`` raise :class:`mash_tpu_torch.NotPortedError`.
+Genomes, reads mode (``-r``, ``-m``, ``-b``, ``-c``, ``-g``), ``-i`` and
+``-M``; windowed sketches (``-W``) raise
+:class:`mash_tpu_torch.NotPortedError`.  One process writes the output.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ from mash_tpu_torch.core.loader import (
     SUFFIX_SKETCH_WINDOWED,
     has_suffix,
     init_from_files,
+    init_from_reads,
     require_ported,
 )
 from mash_tpu_torch.io import capnp_msh
@@ -120,12 +122,15 @@ class CommandSketch(Command):
         if (
             self.get_option("id").active
             or self.get_option("comment").active
-        ) and len(files) > 1:
+        ) and len(files) > 1 and not params.reads:
             sys.stderr.write(
                 "WARNING: -I and -C will only apply to first sketch\n"
             )
 
-        sketch_set = init_from_files(files, params, verbosity)
+        if params.reads:
+            sketch_set = init_from_reads(files, params)
+        else:
+            sketch_set = init_from_files(files, params, verbosity)
 
         if self.get_option("id").active:
             sketch_set.references[0].name = self.get_option("id").argument
@@ -171,7 +176,7 @@ class CommandSketch(Command):
             sketch_set.position_hashes,
         )
 
-        if warning_count > 0:
+        if warning_count > 0 and not params.reads:
             warn_kmer_size(
                 params,
                 self,

@@ -5,6 +5,12 @@ with 0x00 separators, cut into overlapping chunks, hashed and
 bottom-s-reduced on the device (``ops.sketch_kernel``), and folded into
 a running sketch state with the associative merge.  The state stays on
 the device until the caller reads it back.
+
+Two record-level modes keep ``mash_tpu``'s semantics: the exact stream
+(``sketch_records_exact``: hashes on the device, bottom-s selection
+through the native ``ExactHeap`` in record order, for ``-m``, ``-b``,
+``-c`` and ``-M``) and per-record batches (``sketch_records_individual``,
+``-i``).
 """
 
 from __future__ import annotations
@@ -17,11 +23,14 @@ import torch
 from mash_tpu_torch.core.params import SketchParams
 from mash_tpu_torch.core.sketch import SketchRef
 from mash_tpu_torch.ops import sketch_ops
-from mash_tpu_torch.ops.kmers import alphabet_bytes, unpack_chunks
+from mash_tpu_torch.ops.kmers import alphabet_bytes, hash_chunk, unpack_chunks
 from mash_tpu_torch.ops.sketch_kernel import sketch_chunks_auto
 from mash_tpu_torch.utils import resolve_device, stage
 
 DEFAULT_CHUNK = 1 << 20
+# Per-record rows are padded to one of these lengths (``mash_tpu``'s
+# buckets), so the sketch kernel sees one shape per bucket.
+_BUCKETS = (1 << 12, 1 << 14, 1 << 16, 1 << 18, DEFAULT_CHUNK)
 
 
 def chunk_stream(
@@ -72,18 +81,8 @@ class SketchEngine:
 
     def _fold_rows(self, state, chunks: torch.Tensor):
         """Fold a ``[B, L]`` uint8 device batch into ``state``."""
-        p = self.params
-        s = p.sketch_size
-        sh, sc = sketch_chunks_auto(
-            chunks,
-            alphabet=self._alpha,
-            k=p.kmer_size,
-            seed=p.seed,
-            use64=p.use64,
-            noncanonical=p.noncanonical,
-            preserve_case=p.preserve_case,
-            s=s,
-        )
+        s = self.params.sketch_size
+        sh, sc = sketch_chunks_auto(chunks, **self._hash_kw(), s=s)
         return sketch_ops.tree_merge(
             torch.cat([state[0][None], sh]),
             torch.cat([state[1][None], sc]),
@@ -92,6 +91,18 @@ class SketchEngine:
 
     def _upload(self, arr: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
+
+    def _hash_kw(self) -> dict:
+        p = self.params
+        return dict(alphabet=self._alpha, k=p.kmer_size, seed=p.seed,
+                    use64=p.use64, noncanonical=p.noncanonical,
+                    preserve_case=p.preserve_case)
+
+    def _bucket(self, n: int) -> int:
+        for b in _BUCKETS:
+            if n <= b:
+                return b
+        return ((n + self.chunk_len - 1) // self.chunk_len) * self.chunk_len
 
     # -- public API ----------------------------------------------------------
 
@@ -173,23 +184,44 @@ class SketchEngine:
         length: int = 0,
     ) -> SketchRef:
         """Read a device state back into a host SketchRef."""
-        h = state[0].cpu().numpy().view(np.uint64)
-        c = state[1].cpu().numpy()
-        n = int((c > 0).sum())
-        return SketchRef(
-            name=name,
-            comment=comment,
-            length=length,
-            hashes=h[:n].copy(),
-            counts=c[:n].astype(np.uint32),
-            counts_sorted=True,
-        )
+        return _host_ref(state[0].cpu().numpy(), state[1].cpu().numpy(),
+                         name, comment, length)
 
     def estimate_set_size(self, state) -> float:
         return sketch_ops.estimate_set_size(state, self.params.use64)
 
     def estimate_multiplicity(self, state) -> float:
         return sketch_ops.estimate_multiplicity(state)
+
+    # -- exact streaming mode --------------------------------------------
+
+    def hash_bytes(self, data: bytes):
+        """Hash every window of one buffer on the device.
+
+        Returns host ``(hashes, valid)`` for its ``len(data) - k + 1``
+        windows: numpy uint64 (of the int64 bit patterns; for k <= 16 the
+        low 32 bits, as ``hash_chunk`` gives them) and bool.  The buffer
+        is not padded to a bucket: eager PyTorch compiles nothing per
+        shape.  The read-back is synchronous.
+        """
+        with stage("engine:hash_bytes"):
+            row = torch.frombuffer(bytearray(data), dtype=torch.uint8)
+            h, v = hash_chunk(row.to(self.device), **self._hash_kw())
+            return h.cpu().numpy().view(np.uint64), v.cpu().numpy()
+
+
+def _host_ref(h: np.ndarray, c: np.ndarray, name: str, comment: str,
+              length: int) -> SketchRef:
+    """A SketchRef from one host state row (int64 hashes, counts)."""
+    n = int((c > 0).sum())
+    return SketchRef(
+        name=name,
+        comment=comment,
+        length=length,
+        hashes=h[:n].view(np.uint64).copy(),
+        counts=c[:n].astype(np.uint32),
+        counts_sorted=True,
+    )
 
 
 # ---------------------------------------------------------------------------
@@ -250,3 +282,193 @@ def sketch_records_concat(
 
     ref = engine.state_to_ref(state, name, comment, total_len)
     return ref, state, count, skipped
+
+
+def sketch_records_exact(
+    engine: SketchEngine,
+    records,
+    file_name: str,
+    is_stdin: bool = False,
+):
+    """Exact-streaming variant of :func:`sketch_records_concat`.
+
+    Hashing runs on the device over record-packed chunks (0x00 between
+    records, no overlap), but bottom-s selection streams through the
+    native ``ExactHeap`` in record order, reproducing the reference
+    heap's order-dependent semantics: gated multiplicities, ``-m``
+    min-copy pending, ``-b`` Bloom filtering, and per-record ``-c``
+    target-coverage early stop (``Sketch.cpp:1256-1262``,
+    ``MinHashHeap.cpp:68-146``).  Each chunk is hashed and read back
+    before the next is packed.  Without ``-c`` a chunk's valid hashes
+    enter the heap in one call: the windows that span a separator are
+    invalid, so they are the records' hashes in record order.
+    """
+    from mash_tpu_torch.native import ExactHeap
+
+    p = engine.params
+    k = p.kmer_size
+    heap = ExactHeap(
+        p.sketch_size,
+        p.min_cov if p.reads else 1,
+        p.memory_bound,
+        p.use64,
+    )
+    per_record = p.reads and p.target_cov > 0
+    count = 0
+    total_len = 0
+    name = "" if is_stdin else file_name
+    comment = ""
+    skipped = False
+    stop = False
+
+    buf = bytearray()
+    bounds = []  # (window_start, window_count, is_record_start) in buf
+
+    def flush():
+        """Hash ``buf`` and stream its records into the heap."""
+        nonlocal stop, count
+        h, v = engine.hash_bytes(bytes(buf))
+        if per_record:
+            for start, nwin, is_start in bounds:
+                if is_start:
+                    # -c early stop is checked at record granularity, as
+                    # in the reference's per-read loop (Sketch.cpp:1258-62)
+                    if count > 0 and heap.multiplicity() >= p.target_cov:
+                        stop = True
+                        break
+                    count += 1
+                vv = v[start : start + nwin]
+                heap.insert(h[start : start + nwin][vv])
+        else:
+            count += sum(1 for b in bounds if b[2])
+            heap.insert(h[v])
+        buf.clear()
+        bounds.clear()
+
+    for rec in records:
+        if len(rec.seq) < k:
+            skipped = True
+            continue
+        if count == 0 and not bounds:
+            if is_stdin:
+                name = rec.name
+                comment = rec.comment or ""
+            else:
+                comment = rec.name + " " + (rec.comment or "")
+        if not p.reads:
+            total_len += len(rec.seq)
+        # records longer than the chunk split into chunk-sized pieces
+        # with k-1 overlap: window order and count are preserved (the
+        # overlap re-covers the boundary windows exactly once)
+        seq = rec.seq
+        if len(seq) <= engine.chunk_len:
+            pieces = [seq]
+        else:
+            step = engine.chunk_len - (k - 1)
+            pieces = [
+                seq[o : o + engine.chunk_len]
+                for o in range(0, len(seq) - k + 1, step)
+            ]
+        for pi, piece in enumerate(pieces):
+            if buf and len(buf) + len(piece) + 1 > engine.chunk_len:
+                flush()
+                if stop:
+                    break
+            if buf:
+                buf.append(0)
+            start = len(buf)
+            buf += piece
+            bounds.append((start, len(piece) - k + 1, pi == 0))
+        if stop:
+            break
+    if buf and not stop:
+        flush()
+
+    if p.reads:
+        if p.genome_size != 0:
+            total_len = p.genome_size
+        else:
+            total_len = int(heap.set_size())
+
+    if count > 1:
+        comment = "[%d seqs] %s [...]" % (count, comment)
+
+    hashes, counts = heap.extract()
+    ref = SketchRef(
+        name=name,
+        comment=comment,
+        length=total_len,
+        hashes=hashes,
+        counts=counts,
+        counts_sorted=True,
+    )
+    return ref, heap, count, skipped
+
+
+def sketch_records_individual(
+    engine: SketchEngine,
+    records,
+    rows: int = 16,
+    wave_bytes: int = 64 << 20,
+    stats: dict | None = None,
+):
+    """Yield one SketchRef per record (len >= k), batched on the device.
+
+    The reference's individual mode sketches each sequence on its own
+    (``sketchFileBySequence``, ``Sketch.cpp:354``); here records of the
+    same pad bucket are stacked ``rows`` to a launch, each padded with
+    0x00 to the bucket and the group with empty rows, so the sketch
+    kernel sees one ``[rows, bucket]`` shape per bucket.  Records are
+    buffered in waves of at most ``wave_bytes`` so output order is input
+    order with bounded memory; records longer than the engine's chunk
+    length take the chunked :meth:`SketchEngine.sketch_seqs`.  A record
+    shorter than k is skipped and noted as ``stats["skipped"]``.
+    """
+    kw = dict(engine._hash_kw(), s=engine.params.sketch_size)
+
+    def flush(wave):
+        results = {}
+        by_bucket = {}
+        for i, rec in wave:
+            if len(rec.seq) > engine.chunk_len:
+                results[i] = engine.state_to_ref(
+                    engine.sketch_seqs([rec.seq]), rec.name,
+                    rec.comment or "", len(rec.seq))
+            else:
+                b = engine._bucket(len(rec.seq))
+                by_bucket.setdefault(b, []).append((i, rec))
+        for b, items in by_bucket.items():
+            for g0 in range(0, len(items), rows):
+                grp = items[g0 : g0 + rows]
+                arr = np.zeros((rows, b), dtype=np.uint8)
+                for r, (_i, rec) in enumerate(grp):
+                    arr[r, : len(rec.seq)] = np.frombuffer(
+                        rec.seq, dtype=np.uint8)
+                with stage("engine:indiv_batch"):
+                    sh, sc = sketch_chunks_auto(engine._upload(arr), **kw)
+                    sh = sh.cpu().numpy()
+                    sc = sc.cpu().numpy()
+                for r, (i, rec) in enumerate(grp):
+                    results[i] = _host_ref(sh[r], sc[r], rec.name,
+                                           rec.comment or "", len(rec.seq))
+        for i in sorted(results):
+            yield results[i]
+
+    wave = []
+    wave_sz = 0
+    idx = 0
+    for rec in records:
+        if len(rec.seq) < engine.params.kmer_size:
+            # report skips so the caller can tell "all records too
+            # short" from "no records at all" (concat path parity)
+            if stats is not None:
+                stats["skipped"] = True
+            continue
+        wave.append((idx, rec))
+        wave_sz += len(rec.seq)
+        idx += 1
+        if wave_sz >= wave_bytes:
+            yield from flush(wave)
+            wave = []
+            wave_sz = 0
+    yield from flush(wave)

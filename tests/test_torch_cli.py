@@ -154,10 +154,8 @@ def test_dist_streamed_path(sketches, monkeypatch):
 
 @pytest.mark.parametrize(
     "argv",
-    [["sketch", "-r", "x.fa"], ["sketch", "-i", "x.fa"],
-     ["sketch", "-W", "x.fa"], ["sketch", "-M", "x.fa"],
-     ["sketch", "-m", "2", "x.fa"], ["triangle", "x.msh"],
-     ["info", "x.msh"], ["within", "x.msh", "y.fa"]],
+    [["sketch", "-W", "x.fa"], ["sketch", "-W", "-L", "500", "x.fa"],
+     ["within", "x.msh", "y.fa"], ["find", "x.fa", "y.fa"]],
 )
 def test_not_ported_exits_nonzero(argv, capsys):
     assert torch_main(argv) == 1

@@ -21,7 +21,11 @@ and the streamed path against its CPU run, and for ``screen_count``
 empty and all-invalid
 batches, a DB of one hash, a DB hash of 2^64-1, valid 2^64-1 lanes,
 32-bit hashes, totals past 2^32, a stream of one repeated hash, a DB
-above ``BIG_DB_MIN`` and a batch of more than 2^31 bytes.
+above ``BIG_DB_MIN`` and a batch of more than 2^31 bytes.  Commands on
+the card must also print and write what they do on the CPU: ``sketch
+-i`` with rows that run plain, take the kernel, or fail its certificate,
+``sketch -r`` and ``-r -m 2``, the triangle's stripes with their ragged
+last tiles, and the streamed ``triangle``.
 """
 
 import contextlib
@@ -485,3 +489,119 @@ def test_screen_cli_cuda_matches_cpu(gpu, tmp_path, monkeypatch):
     assert outs["cuda"] == outs["cpu"]
     assert sck.LAUNCHES["screen_count"] > before
     assert len(outs["cpu"][0].splitlines()) == 3
+
+
+def _cli(monkeypatch, device, argv):
+    from mash_tpu_torch.__main__ import main
+
+    monkeypatch.setenv("MASH_TPU_TORCH_DEVICE", device)
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        assert main(argv) == 0
+    return out.getvalue(), err.getvalue()
+
+
+def test_individual_cuda_matches_cpu(gpu, tmp_path, monkeypatch):
+    """``sketch -i`` on the card writes the CPU's ``.msh`` bytes, for rows
+    that run plain (the 4 and 16 KiB buckets), rows that take
+    ``sketch_select`` with a certificate (64 and 256 KiB buckets, some
+    mostly padding), and rows whose certificate fails and which are
+    recomputed (a 64 KiB-bucket record of a few hundred distinct k-mers
+    repeated, fewer than s, more than m a subrow)."""
+    rng = np.random.default_rng(51)
+    unit = _seq(1, b"ACGT", 300).tobytes()
+    recs = [_seq(i, b"ACGTACGTacgtN", n).tobytes() for i, n in
+            enumerate((3000, 15000, 17000, 60000, 66000, 100000, 250000))]
+    recs += [unit * 70, unit * 60 + _seq(9, b"ACGT", 3000).tobytes()]
+    recs += [_seq(20 + i, b"ACGT", int(n)).tobytes()
+             for i, n in enumerate(rng.integers(16500, 65000, 20))]
+    path = tmp_path / "multi.fa"
+    path.write_bytes(b"".join(b">r%d rec\n%s\n" % (i, r)
+                              for i, r in enumerate(recs)))
+    before = sk.LAUNCHES["sketch_select"]
+    msh = {}
+    for device in ("cuda", "cpu"):
+        prefix = str(tmp_path / device)
+        _cli(monkeypatch, device, ["sketch", "-i", "-o", prefix, str(path)])
+        msh[device] = open(prefix + ".msh", "rb").read()
+    assert msh["cuda"] == msh["cpu"]
+    # two launches of 16 rows in the 64 KiB bucket, one in 256 KiB
+    assert sk.LAUNCHES["sketch_select"] == before + 3
+
+
+def test_reads_cuda_matches_cpu(gpu, tmp_path, monkeypatch):
+    """``sketch -r`` (the ingest route, over the 4 MiB gate: it launches
+    ``sketch_select``) and ``sketch -r -m 2`` (hashes on the card, the
+    native heap) write the CPU's ``.msh`` bytes and stderr."""
+    genome = _seq(3, b"ACGT", 200000)
+    rng = np.random.default_rng(4)
+    comp = bytes.maketrans(b"ACGT", b"TGCA")
+    path = tmp_path / "reads.fq"
+    with open(path, "wb") as f:
+        for i in range(14000):
+            p = int(rng.integers(0, genome.size - 150))
+            read = genome[p : p + 150].copy()
+            hit = rng.random(150) < 0.01
+            read[hit] = np.frombuffer(b"ACGT", np.uint8)[
+                rng.integers(0, 4, int(hit.sum()))]
+            raw = read.tobytes()
+            raw = raw.translate(comp)[::-1] if i % 2 else raw
+            f.write(b"@q%d\n%s\n+\n%s\n" % (i, raw, b"I" * 150))
+    assert path.stat().st_size > 4 << 20
+    for opts in (["-r"], ["-r", "-m", "2"]):
+        before = sk.LAUNCHES["sketch_select"]
+        got = {}
+        for device in ("cuda", "cpu"):
+            prefix = str(tmp_path / device)
+            _, err = _cli(monkeypatch, device,
+                          ["sketch", *opts, "-o", prefix, str(path)])
+            got[device] = (open(prefix + ".msh", "rb").read(),
+                           err.replace(prefix, "OUT"))
+        assert got["cuda"] == got["cpu"], opts
+        assert (sk.LAUNCHES["sketch_select"] > before) == (len(opts) == 1)
+
+
+@pytest.mark.parametrize("full", [False, True], ids=["partial", "full"])
+def test_triangle_stripes_cuda_matches_cpu(gpu, full):
+    """``stream_pair_stripes(triangle=True)`` on the card: one ranked
+    upload serves both sides, each stripe's last tile is cut short, and
+    each tile is one ``pairwise32`` launch."""
+    rng = np.random.default_rng(8 + full)
+    H, N = _sketches(rng, 150, 400, 1200, full=full)
+    out = {}
+    before = pk.LAUNCHES["pairwise32"]
+    for dev in ("cuda", "cpu"):
+        out[dev] = [(i0, st) for i0, st in td.stream_pair_stripes(
+            H, N, H, N, 400, dev, row_block=32, tile_r=48, triangle=True)]
+    assert [i0 for i0, _ in out["cuda"]] == list(range(0, 150, 32))
+    for (i0, a), (j0, b) in zip(out["cuda"], out["cpu"]):
+        assert i0 == j0 and a.shape == b.shape == (min(32, 150 - i0),
+                                                   i0 + min(32, 150 - i0) - 1)
+        np.testing.assert_array_equal(a, b)
+    # stripes at 0, 32, ..., 128 need ceil((i0 + rows - 1) / 48) tiles
+    tiles = sum(-(-(i0 + min(32, 150 - i0) - 1) // 48)
+                for i0 in range(0, 150, 32))
+    assert pk.LAUNCHES["pairwise32"] == before + tiles
+
+
+def test_streamed_triangle_cuda_matches_cpu(gpu, tmp_path, monkeypatch):
+    """The streamed ``triangle`` on the card prints the CPU's stdout and
+    stderr, in PHYLIP and as an edge list."""
+    import mash_tpu_torch.commands.triangle as tri
+    from mash_tpu_torch.core.sketch import SketchRef
+    from mash_tpu_torch.io import capnp_msh
+
+    rng = np.random.default_rng(12)
+    H, N = _sketches(rng, 300, 1000, 3000)
+    refs = [SketchRef(name="s%03d" % i, comment="", length=5_000_000,
+                      hashes=H[i, : N[i]]) for i in range(300)]
+    msh = str(tmp_path / "t.msh")
+    capnp_msh.write_msh(msh, default_nucleotide_params(21, 1000, 42), refs)
+    monkeypatch.setattr(tri, "STREAM_MIN_SKETCHES", 100)
+    before = pk.LAUNCHES["pairwise32"]
+    for opts in ([], ["-E", "-d", "0.2"]):
+        outs = [_cli(monkeypatch, dev, ["triangle", *opts, msh])
+                for dev in ("cuda", "cpu")]
+        assert outs[0] == outs[1], opts
+        assert outs[0][0].strip()
+    assert pk.LAUNCHES["pairwise32"] > before
