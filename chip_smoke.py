@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Smoke test of mash_tpu_torch on one GPU: sketch -> dist, screen, reads,
-per-record sketches and triangles.
+per-record sketches, triangles, windowed search and containment.
 
 Run from the root of a checkout on a machine with an NVIDIA H100 and the
 CUDA toolkit:
@@ -53,10 +53,23 @@ Phases (any failure exits non-zero before the result lines):
    family) and ``triangle`` of the 64 genome sketches (``pairwise64``);
    cross-checked against the CPU's plain path on the first 128 record
    sketches and the 64 genomes, and ``paste``, ``info`` and ``bounds``
-   under the GPU's and the CPU's environment.
+   under the GPU's and the CPU's environment;
+8. windowed search and containment: ``sketch -W -s 100`` of the first 16
+   genomes (cut from 64: the ``.msw`` writer and the loci index touch
+   each locus in Python), ``find -b 1`` of 64 fragments of 10 kb of genome
+   0 (1 % substitutions, every other one reverse-complemented) against
+   that ``.msw``, and ``find`` against genome 0's FASTA (equal to ``find``
+   against its ``.msw``), ``within -s 10000`` of genome 0's FASTA (K1) against
+   the 64 genome sketches, and ``within -e 1`` of the 4096 record sketches
+   against the 64 genome sketches (262 144 pairs of the plain torch
+   ``pairwise_containment``, whose CUDA-event time the line carries, as
+   the ``sketch -W`` line carries the windowed hash's); cross-checked
+   against the CPU's plain path on genome 0's ``.msw``, ``find`` of 8
+   fragments, ``within`` of 128 record sketches and the ``within`` of
+   genome 0's FASTA.
 
 Every kernel's launch count is reset just before each main-path command
-of phases 4 to 7 and read just after it; the kernels that command runs
+of phases 4 to 8 and read just after it; the kernels that command runs
 must have launched, and no ``torch.sort`` call of the screen counter may
 be left on the screen commands' path.  Each main-path command prints one
 JSON line with its wall seconds and the wall seconds of its stages
@@ -985,6 +998,15 @@ def complement_table():
     return comp
 
 
+def read_genome(path: str):
+    """The bases of a one-record FASTA file of ``write_genomes`` (uint8)."""
+    import numpy as np
+
+    with open(path, "rb") as f:
+        f.readline()
+        return np.frombuffer(f.read().replace(b"\n", b""), np.uint8)
+
+
 def write_reads(rng, genome, path, n, tag: bytes):
     """FASTQ of n reads of ``genome`` (uint8 bases): every other read
     reverse-complemented, 1 % substitutions, records of fixed width."""
@@ -1063,9 +1085,7 @@ def phase_reads(rng, folder, paths, all_msh, cmd_launches,
 
     from mash_tpu_torch.io import capnp_msh
 
-    with open(paths[0], "rb") as f:
-        f.readline()
-        genome = np.frombuffer(f.read().replace(b"\n", b""), np.uint8)
+    genome = read_genome(paths[0])
     t0 = time.perf_counter()
     reads = [os.path.join(folder, "reads_R%d.fq" % i) for i in (1, 2)]
     for i, path in enumerate(reads):
@@ -1263,6 +1283,204 @@ def phase_triangle(report, folder, paths, all_msh, plasmids_msh,
     print("phase triangle: ok", flush=True)
 
 
+# -- windowed search and containment (phase 8) -----------------------------
+
+# genomes in ``sketch -W``: cut from 64, since the .msw writer and the loci
+# index (``SketchSet.loci_by_hash``) touch each locus in Python
+N_WINDOWED = 16
+WINDOW_S = 100  # the minmers per window ``find`` picks itself: L / f
+N_FRAGMENTS = 64
+FRAGMENT_LEN = 10_000
+N_CROSS_FRAGMENTS = 8
+N_CROSS_PLASMIDS = 128
+
+
+def write_fragments(rng, genome, path):
+    """A FASTA of N_FRAGMENTS fragments of ``genome`` at random offsets
+    outside its lowercase stretch (``find`` uppercases a query, while the
+    ``.msw`` hashes the reference's bytes as they are), 1 % substitutions,
+    every other one reverse-complemented; returns the offsets."""
+    import numpy as np
+
+    lower = np.flatnonzero(genome >= ord("a"))
+    offsets = []
+    while len(offsets) < N_FRAGMENTS:
+        p = int(rng.integers(0, genome.size - FRAGMENT_LEN + 1))
+        if not np.any((lower >= p) & (lower < p + FRAGMENT_LEN)):
+            offsets.append(p)
+    comp = complement_table()
+    with open(path, "wb") as f:
+        for i, p in enumerate(offsets):
+            seq = genome[p : p + FRAGMENT_LEN].copy()
+            hit = rng.random(seq.size) < 0.01
+            seq[hit] = np.frombuffer(b"ACGT", np.uint8)[
+                rng.integers(0, 4, int(hit.sum()))]
+            if i % 2:
+                seq = comp[seq[::-1]]
+            f.write(b">frag%02d offset %d\n%s\n" % (i, p, seq.tobytes()))
+    return offsets
+
+
+def containment_ms(ref_msh, qry_msh) -> float:
+    """CUDA-event milliseconds of ``pairwise_containment`` on the padded
+    sketches that ``within ref_msh qry_msh`` builds."""
+    import torch
+
+    from mash_tpu_torch.io import capnp_msh
+    from mash_tpu_torch.ops import distance
+
+    refs = capnp_msh.read_msh(ref_msh).references
+    qrys = capnp_msh.read_msh(qry_msh).references
+    width = max(len(r.hashes) for r in refs + qrys)
+    dev = torch.device("cuda")
+    rh, rn = distance._upload(*distance.pad_sketches(
+        [r.hashes for r in refs], width), dev)
+    qh, qn = distance._upload(*distance.pad_sketches(
+        [r.hashes for r in qrys], width), dev)
+    return cuda_ms(lambda: distance.pairwise_containment(rh, rn, qh, qn))
+
+
+def windowed_hash_ms() -> float:
+    """CUDA-event milliseconds of ``windowed_hash`` of one 1 MiB piece, as
+    ``SketchEngine.windowed_positions`` hashes it before its read-back."""
+    import numpy as np
+    import torch
+
+    from mash_tpu_torch.core.engine import DEFAULT_CHUNK, windowed_hash
+
+    row = torch.from_numpy(random_chunks(np.random.default_rng(8), 1,
+                                         DEFAULT_CHUNK)[0]).cuda()
+    return cuda_ms(lambda: windowed_hash(row, K, 42))
+
+
+def find_hits(out: str) -> dict:
+    """``{query: [[reference, start, end, strand, score], ...]}`` of
+    ``find`` lines, best first.  ``find``'s ``-b`` is shadowed by the
+    sketch options' ``-b`` (the Bloom filter size, added later), in
+    ``mash_tpu`` as here, so ``-b 1`` prints every hit over the
+    threshold."""
+    hits = {}
+    for ln in out.splitlines():
+        f = ln.split("\t")
+        hits.setdefault(f[0], []).append(
+            [f[1], int(f[2]), int(f[3]), f[4], float(f[5])])
+    return hits
+
+
+def phase_windowed(folder, rng, paths, all_msh, plasmids_msh, cmd_launches,
+                   profile=None):
+    """sketch -W, find and within through the CLI, each with every launch
+    counter reset just before it; then cross-checks against the CPU."""
+    from mash_tpu_torch.io import capnp_msh
+
+    frags = os.path.join(folder, "fragments.fa")
+    offsets = write_fragments(rng, read_genome(paths[0]), frags)
+    genome0 = "genome00"
+
+    def run(name, argv, kernels, extra=None, stderr=None):
+        return counted_cli(name, argv, kernels, profile, cmd_launches,
+                           extra or (lambda w: {}), stderr)
+
+    print("sketch_w: cut from %d genomes to the first %d (the .msw writer "
+          "and the loci index touch each locus in Python)"
+          % (N_GENOMES, N_WINDOWED), flush=True)
+    msw = os.path.join(folder, "windowed.msw")
+    bases = N_WINDOWED * GENOME_LEN
+
+    def sketch_w_extra(wall):
+        loci = sum(len(a) for a in capnp_msh.read_msh(msw).position_hashes)
+        return {"bases": bases, "bases_per_s": bases / wall, "loci": loci,
+                "windowed_hash_ms_per_MiB": windowed_hash_ms()}
+
+    _, line = run("sketch_w", ["sketch", "-W", "-s", str(WINDOW_S), "-o", msw,
+                               *paths[:N_WINDOWED]], [], sketch_w_extra)
+    require(0.005 * bases < line["loci"] < 0.05 * bases,
+            "sketch -W stored %d loci of %d bases" % (line["loci"], bases))
+
+    out, _ = run("find_msw", ["find", "-b", "1", msw, frags], [])
+    hits = find_hits(out)
+    require(len(hits) == N_FRAGMENTS, "find hit %d of %d fragments"
+            % (len(hits), N_FRAGMENTS))
+    for i, p in enumerate(offsets):
+        frag = hits["frag%02d" % i]
+        # every genome is a copy of genome 0 with substitutions, so each
+        # hit lies at the fragment's origin; the best is genome 0's or
+        # genome 1's (0.08 % away, which may tie)
+        require(frag[0][0] in (genome0, "genome01") and all(
+            start < p + FRAGMENT_LEN and end >= p and strand == "+-"[i % 2]
+            for _ref, start, end, strand, _score in frag),
+            "frag%02d (offset %d, %s) hit %s" % (i, p, "+-"[i % 2], frag))
+    best = [h[0][4] for h in hits.values()]
+    print("find: every fragment hit its origin on its strand, best first "
+          "genome 0 or 1; best scores %.3f-%.3f; %d hits"
+          % (min(best), max(best), len(out.splitlines())), flush=True)
+
+    # genome 0 alone, windowed on the card and on the CPU
+    msw0 = {}
+    for dev, env in (("gpu", GPU), ("cpu", CPU)):
+        msw0[dev] = os.path.join(folder, "genome0_%s.msw" % dev)
+        run_cli(["sketch", "-W", "-s", str(WINDOW_S), "-o", msw0[dev],
+                 paths[0]], env, [])
+    with open(msw0["gpu"], "rb") as a, open(msw0["cpu"], "rb") as b:
+        require(a.read() == b.read(), "sketch -W .msw bytes of genome 0 "
+                "differ from the CPU's")
+    fasta_out, _ = run("find_fasta", ["find", paths[0], frags], [])
+    require(fasta_out == run_cli(["find", msw0["gpu"], frags], GPU),
+            "find against genome 0's FASTA differs from find against its "
+            ".msw")
+    require(len(fasta_out.splitlines()) >= N_FRAGMENTS,
+            "find against genome 0 printed %d lines"
+            % len(fasta_out.splitlines()))
+
+    err = []
+    out, _ = run("within_fasta", ["within", "-s", "10000", paths[0],
+                                  all_msh], ["sketch_select"], stderr=err)
+    score = {f[3]: float(f[0]) for f in
+             (ln.split("\t") for ln in out.splitlines())}
+    require(len(score) == N_GENOMES and score[paths[0]] == 1.0
+            and score[paths[-1]] < score[paths[1]],
+            "within of genome 0: %d rows, genome 0 %s, genome 1 %s, "
+            "genome %d %s" % (len(score), score.get(paths[0]),
+                              score.get(paths[1]), N_GENOMES - 1,
+                              score.get(paths[-1])))
+    print("within_fasta: genome 0 scores 1, genome 1 %.4f, genome %d %.4f"
+          % (score[paths[1]], N_GENOMES - 1, score[paths[-1]]), flush=True)
+    within_gpu = (out, err[0])
+
+    n_pairs = N_GENOMES * N_FAMILIES * FAMILY_SIZE
+    out, _ = run("within_plasmids", ["within", "-e", "1", all_msh,
+                                     plasmids_msh], [],
+                 lambda w: {"pairs": n_pairs, "containment_ms":
+                            containment_ms(all_msh, plasmids_msh)})
+    rows = [ln.split("\t") for ln in out.splitlines()]
+    require(rows and all(float(f[0]) < 0.05 for f in rows),
+            "a plasmid sketch is contained in a genome's: %s"
+            % max((f for f in rows), key=lambda f: float(f[0]),
+                  default=None))
+    print("within_plasmids: %d of %d pairs with a consumed query hash"
+          % (len(rows), n_pairs), flush=True)
+
+    # cross-checks against the CPU's plain path
+    head = os.path.join(folder, "fragments_head.fa")
+    with open(frags, "rb") as f, open(head, "wb") as g:
+        g.writelines(f.readline() for _ in range(2 * N_CROSS_FRAGMENTS))
+    require(run_cli(["find", msw0["gpu"], head], GPU)
+            == run_cli(["find", msw0["gpu"], head], CPU),
+            "find of %d fragments differs from the CPU's" % N_CROSS_FRAGMENTS)
+    first = os.path.join(folder, "plasmids_first.msh")
+    msh = capnp_msh.read_msh(plasmids_msh)
+    capnp_msh.write_msh(first, msh.params, msh.references[:N_CROSS_PLASMIDS])
+    argv = ["within", "-e", "1", all_msh, first]
+    require(run_cli(argv, GPU) == run_cli(argv, CPU),
+            "within of %d plasmid sketches differs from the CPU's"
+            % N_CROSS_PLASMIDS)
+    err = []
+    cpu_out = run_cli(["within", "-s", "10000", paths[0], all_msh], CPU, err)
+    require((cpu_out, err[0]) == within_gpu,
+            "within_fasta differs from the CPU's")
+    print("phase windowed: ok", flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1312,6 +1530,8 @@ def main(argv=None) -> int:
         plasmids_msh = phase_reads(rng, folder, paths, all_msh, cmd_launches,
                                    args.profile)
         phase_triangle(report, folder, paths, all_msh, plasmids_msh,
+                       cmd_launches, args.profile)
+        phase_windowed(folder, rng, paths, all_msh, plasmids_msh,
                        cmd_launches, args.profile)
     # each kernel's count from the run of the path that calls it
     for name in ("screen_table", "screen_count"):

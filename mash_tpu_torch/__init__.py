@@ -14,14 +14,4 @@ imports neither ``jax`` nor ``mash_tpu``.
 
 from mash_tpu_torch._version import __version__
 
-
-class NotPortedError(RuntimeError):
-    """A feature of ``mash_tpu`` that this package does not have yet."""
-
-    def __init__(self, feature: str):
-        super().__init__(
-            "%s is not yet ported in mash_tpu_torch" % feature
-        )
-
-
-__all__ = ["NotPortedError", "__version__"]
+__all__ = ["__version__"]

@@ -9,7 +9,6 @@ from __future__ import annotations
 
 import sys
 
-from mash_tpu_torch import NotPortedError
 from mash_tpu_torch._version import COMPAT_VERSION, __version__
 from mash_tpu_torch.commands import command_registry
 
@@ -68,9 +67,6 @@ def main(argv=None) -> int:
             return command.parse(argv[1:])
     except BrokenPipeError:
         return 0
-    except NotPortedError as e:
-        sys.stderr.write("ERROR: %s\n" % e)
-        return 1
     except Exception as e:
         from mash_tpu_torch.io.capnp_msh import CorruptMshError
 

@@ -1,8 +1,8 @@
 """``mash sketch`` (reference ``CommandSketch.cpp``).
 
-Genomes, reads mode (``-r``, ``-m``, ``-b``, ``-c``, ``-g``), ``-i`` and
-``-M``; windowed sketches (``-W``) raise
-:class:`mash_tpu_torch.NotPortedError`.  One process writes the output.
+Genomes, reads mode (``-r``, ``-m``, ``-b``, ``-c``, ``-g``), ``-i``,
+``-M`` and windowed sketches (``-W``, written as ``.msw``).  One process
+writes the output.
 """
 
 from __future__ import annotations
@@ -17,7 +17,6 @@ from mash_tpu_torch.core.loader import (
     has_suffix,
     init_from_files,
     init_from_reads,
-    require_ported,
 )
 from mash_tpu_torch.io import capnp_msh
 
@@ -110,7 +109,6 @@ class CommandSketch(Command):
         if params is None:
             return 1
         params.counts = self.get_option("counts").active
-        require_ported(params)
 
         files = []
         for arg in self.arguments:

@@ -10,7 +10,9 @@ Two record-level modes keep ``mash_tpu``'s semantics: the exact stream
 (``sketch_records_exact``: hashes on the device, bottom-s selection
 through the native ``ExactHeap`` in record order, for ``-m``, ``-b``,
 ``-c`` and ``-M``) and per-record batches (``sketch_records_individual``,
-``-i``).
+``-i``).  Windowed mode (``-W``, ``find``) hashes each record's raw
+forward strand on the device and picks its minmers with the native sweep
+(``SketchEngine.windowed_positions``).
 """
 
 from __future__ import annotations
@@ -208,6 +210,56 @@ class SketchEngine:
             row = torch.frombuffer(bytearray(data), dtype=torch.uint8)
             h, v = hash_chunk(row.to(self.device), **self._hash_kw())
             return h.cpu().numpy().view(np.uint64), v.cpu().numpy()
+
+    # -- windowed (minmer) mode --------------------------------------------
+
+    def windowed_positions(self, seq: bytes):
+        """Minmer (positions, hashes) of one sequence: hashes on the
+        device (:func:`windowed_hash`), the window sweep in the native
+        runtime.
+
+        A sequence longer than the chunk length is hashed in chunk-sized
+        pieces with k-1 overlap: the hash at position i depends only on
+        bytes [i, i+k), so the pieces' hashes concatenated are the whole
+        sequence's, with device memory bounded by the chunk.
+        """
+        from mash_tpu_torch.native import minmer_positions
+
+        p = self.params
+        k = p.kmer_size
+        n = len(seq) - k + 1
+        if n < 1:
+            raise ValueError("sequence of %d bytes is shorter than k=%d"
+                             % (len(seq), k))
+
+        def hash_piece(piece: bytes) -> np.ndarray:
+            with stage("engine:windowed_hash"):
+                row = torch.frombuffer(bytearray(piece), dtype=torch.uint8)
+                h = windowed_hash(row.to(self.device), k, p.seed)
+                return h.cpu().numpy().view(np.uint64)
+
+        if len(seq) <= self.chunk_len:
+            h = hash_piece(seq)
+        else:
+            step = self.chunk_len - (k - 1)
+            h = np.concatenate([hash_piece(seq[o : o + self.chunk_len])
+                                for o in range(0, n, step)])[:n]
+        with stage("engine:minmers"):
+            return minmer_positions(h, p.window_size, p.sketch_size)
+
+
+def windowed_hash(seq: torch.Tensor, k: int, seed: int) -> torch.Tensor:
+    """Forward-strand raw-byte hashes of every k-mer window of ``seq``
+    (int64 bit patterns ``[..., L-k+1]``), for windowed mode.
+
+    ``getMinHashPositions`` (``Sketch.cpp:585-895``) hashes every forward
+    k-mer of the raw sequence: no uppercase pass, no canonicalization, no
+    invalid-k-mer skip, and always the 64-bit hash (``find`` hardcodes
+    ``use64``, ``CommandFind.cpp:286``), whatever ``params.use64`` says.
+    """
+    h, _ = hash_chunk(seq, alphabet=(), k=k, seed=seed, use64=True,
+                      noncanonical=True, preserve_case=True)
+    return h
 
 
 def _host_ref(h: np.ndarray, c: np.ndarray, name: str, comment: str,

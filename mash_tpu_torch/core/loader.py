@@ -7,7 +7,7 @@ and loaded with truncation; sequence files are sketched per file
 (concatenated), per record (individual mode, ``-i``) or pooled over all
 files (reads mode) through the device engine.  One process: the
 multi-host branch of ``mash_tpu``'s reads mode is not ported.  Windowed
-mode (``-W``) raises :class:`mash_tpu_torch.NotPortedError`.
+mode (``-W``) stores each record's minmer (position, hash) loci.
 """
 
 from __future__ import annotations
@@ -15,7 +15,8 @@ from __future__ import annotations
 import sys
 from typing import List, Optional
 
-from mash_tpu_torch import NotPortedError
+import numpy as np
+
 from mash_tpu_torch.core.engine import (
     SketchEngine,
     sketch_records_concat,
@@ -63,12 +64,6 @@ def adopt_params_from_msh(params: SketchParams, path: str,
     params.seed = other.seed
     params.set_alphabet(other.alphabet_string())
     return n
-
-
-def require_ported(params: SketchParams) -> None:
-    """Raise NotPortedError for sketching modes outside this package."""
-    if params.windowed:
-        raise NotPortedError("windowed sketching (-W)")
 
 
 def needs_exact_streaming(params: SketchParams) -> bool:
@@ -248,7 +243,6 @@ def init_from_files(
                     positions = msh.position_hashes[j]
                 sketch_set.add(ref, positions)
             continue
-        require_ported(params)
         if engine is None:
             engine = SketchEngine(params, device=device)
         if verbosity > 0:
@@ -277,6 +271,8 @@ def init_from_files(
                     )
                 raise SystemExit(1)
             sketch_set.add(ref)
+        elif params.windowed:
+            _sketch_records_windowed(engine, path, sketch_set)
         elif needs_exact_streaming(params):
             # individual mode with stored multiplicities: one exact heap
             # per record (``sketchFileBySequence`` + ``sketchSequence``)
@@ -300,6 +296,27 @@ def init_from_files(
                     err.write("\nERROR: reading %s.\n" % path)
                 raise SystemExit(1)
     return sketch_set
+
+
+def _sketch_records_windowed(engine: SketchEngine, path: str,
+                             sketch_set: SketchSet) -> None:
+    """One windowed (``-W``) entry per record of ``path``: its minmer
+    ``[n, 2]`` (position, hash) loci, or none when it has no minmer."""
+    any_record = False
+    for rec in read_fastx(path):
+        if len(rec.seq) < engine.params.kmer_size:
+            continue
+        any_record = True
+        pos, hh = engine.windowed_positions(rec.seq)
+        sketch_set.add(
+            SketchRef(name=rec.name, comment=rec.comment or "",
+                      length=len(rec.seq)),
+            np.stack([pos.astype(np.uint64), hh], axis=1) if len(pos)
+            else None,
+        )
+    if not any_record:
+        sys.stderr.write("\nERROR: reading %s.\n" % path)
+        raise SystemExit(1)
 
 
 def _sketch_records_exact_each(engine: SketchEngine, path: str,

@@ -17,7 +17,9 @@ Sketch rows are int64 bit patterns padded to a common width with the
 EMPTY sentinel (2^64-1).  :func:`pairwise_common_denom` is the plain
 version (a sort of each pair's concatenated rows, as in ``mash_tpu``);
 on CUDA tensors :func:`pairwise_common_denom_auto` runs the hand-written
-kernels of ``ops.pairwise_kernel``.
+kernels of ``ops.pairwise_kernel``.  Containment (``within``) uses the
+asymmetric walk of ``src/mash/CommandContain.cpp:231-263``
+(:func:`pairwise_containment`, plain torch on either device).
 """
 
 from __future__ import annotations
@@ -94,6 +96,60 @@ def pairwise_common_denom(qry, nqry, ref, nref, *, cap: int,
         common.view(-1)[p] = c.int()
         denom.view(-1)[p] = d.int()
     return common, denom
+
+
+def pairwise_containment(ref, nref, qry, nqry, *, max_elems: int = 1 << 24):
+    """Asymmetric containment walk (``containSketches``,
+    ``src/mash/CommandContain.cpp:231-263``), as in ``mash_tpu``.
+
+    Query element ``q`` at position ``pos`` of its row is *consumed* when
+    it is real, ``pos < min(nq, nr)`` (the walk's budget of query steps)
+    and its left insertion index in the reference row is below ``nr``
+    (the reference cursor has not run out); it is *common* when it is
+    consumed and present in the reference row.  Both rows are searched in
+    unsigned order through their biased bit patterns, so a 32-bit hash
+    0xFFFFFFFF is a value like any other and only the EMPTY pad sorts
+    last.  Queries are taken in chunks: each searches every reference row
+    at once (``torch.searchsorted`` with the reference rows as a batched
+    sorted sequence), at most ``max_elems`` query elements a chunk.  Plain
+    torch on either device.
+
+    Args:
+      ref: int64 ``[NR, s]`` sorted ascending (unsigned), EMPTY-padded.
+      nref: int ``[NR]`` real sizes.
+      qry: int64 ``[NQ, s]``.
+      nqry: int ``[NQ]``.
+
+    Returns:
+      (common, consumed) int32 tensors of shape ``[NQ, NR]``: score =
+      common / consumed, error bound = 1 / sqrt(consumed).
+    """
+    nq, s = qry.shape
+    nr = ref.shape[0]
+    dev = qry.device
+    common = torch.zeros((nq, nr), dtype=torch.int32, device=dev)
+    consumed = torch.zeros((nq, nr), dtype=torch.int32, device=dev)
+    if nq == 0 or nr == 0 or s == 0:
+        return common, consumed
+    rb = biased(ref).contiguous()
+    qb = biased(qry)
+    n_r = nref.long().to(dev)
+    n_q = nqry.long().to(dev)
+    pos = torch.arange(s, device=dev)
+    chunk = max(1, max_elems // (nr * s))
+    for q0 in range(0, nq, chunk):
+        q1 = min(nq, q0 + chunk)
+        vals = qb[q0:q1].reshape(1, -1).expand(nr, -1).contiguous()
+        left = torch.searchsorted(rb, vals, side="left").view(nr, q1 - q0, s)
+        right = torch.searchsorted(rb, vals, side="right").view(
+            nr, q1 - q0, s)
+        # [nr, c, s]: the budget min(nq, nr) bounds pos < nq as well
+        budget = torch.minimum(n_q[None, q0:q1], n_r[:, None])
+        taken = (pos[None, None, :] < budget[:, :, None]) & (
+            left < n_r[:, None, None])
+        common[q0:q1] = (taken & (right > left)).sum(dim=2).T.int()
+        consumed[q0:q1] = taken.sum(dim=2).T.int()
+    return common, consumed
 
 
 # Rank-compress 64-bit inputs above this many pairs (the reference's

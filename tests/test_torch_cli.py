@@ -4,8 +4,7 @@ Both CLIs run in-process on the same numpy-seeded FASTA files, the port
 with ``MASH_TPU_TORCH_DEVICE=cpu``.  ``sketch`` must write the same
 ``.msh`` bytes — including for an input of at least 4 MiB, which takes
 the native ingest route — and ``dist`` (plain, ``-t``, ``-C``, with
-thresholds) must print the same bytes.  Options outside the slice exit
-non-zero with "not yet ported".
+thresholds) must print the same bytes.
 """
 
 import contextlib
@@ -150,13 +149,3 @@ def test_dist_streamed_path(sketches, monkeypatch):
     monkeypatch.setattr(tdist, "STREAM_MIN_CELLS", 2)
     got = _run(torch_main, ["dist", paths["torch"], paths["torch"]])
     assert got == want
-
-
-@pytest.mark.parametrize(
-    "argv",
-    [["sketch", "-W", "x.fa"], ["sketch", "-W", "-L", "500", "x.fa"],
-     ["within", "x.msh", "y.fa"], ["find", "x.fa", "y.fa"]],
-)
-def test_not_ported_exits_nonzero(argv, capsys):
-    assert torch_main(argv) == 1
-    assert "not yet ported in mash_tpu_torch" in capsys.readouterr().err

@@ -605,3 +605,111 @@ def test_streamed_triangle_cuda_matches_cpu(gpu, tmp_path, monkeypatch):
         assert outs[0] == outs[1], opts
         assert outs[0][0].strip()
     assert pk.LAUNCHES["pairwise32"] > before
+
+
+CONTAIN_CASES = ["unequal", "empty_rows", "nq_gt_nr", "k15_max", "wide"]
+
+
+def _contain_case(case):
+    """(ref, nr, qry, nq) numpy rows of one edge of the containment walk:
+    unequal sizes, zero-size rows, queries larger than their references,
+    32-bit hashes with a real 0xFFFFFFFF in most rows, and the 4096 x 64
+    shape of ``within`` of plasmid sketches against genomes."""
+    rng = np.random.default_rng(70 + CONTAIN_CASES.index(case))
+    if case == "wide":
+        rh, rn = _sketches(rng, 64, 1000, 40000, full=True)
+        qh, qn = _sketches(rng, 4096, 1000, 40000)
+        return rh, rn, qh, qn
+    if case == "k15_max":
+        rh, rn = _sketches(rng, 40, 300, 700, bits=32)
+        qh, qn = _sketches(rng, 50, 300, 700, bits=32)
+        for h, n in ((rh, rn), (qh, qn)):
+            for i in range(0, len(n), 3):
+                row = np.unique(np.append(h[i, : n[i] - 1], 0xFFFFFFFF))
+                h[i], n[i] = EMPTY, row.size
+                h[i, : row.size] = row
+        return rh, rn, qh, qn
+    rh, rn = _sketches(rng, 40, 200, 500)
+    qh, qn = _sketches(rng, 50, 200, 500)
+    if case == "empty_rows":
+        rh[1::4], rn[1::4] = EMPTY, 0
+        qh[::5], qn[::5] = EMPTY, 0
+    elif case == "nq_gt_nr":
+        rn[:] = np.minimum(rn, 40)
+        for i in range(len(rn)):
+            rh[i, rn[i]:] = EMPTY
+    return rh, rn, qh, qn
+
+
+@pytest.mark.parametrize("case", CONTAIN_CASES)
+def test_pairwise_containment_cuda_matches_cpu(gpu, case):
+    """``pairwise_containment`` (plain torch on either device) gives the
+    card's and the CPU's (common, consumed) alike; the wide case runs in
+    chunks of queries."""
+    rh, rn, qh, qn = _contain_case(case)
+    got = {}
+    for dev in ("cuda", "cpu"):
+        got[dev] = [a.cpu() for a in td.pairwise_containment(
+            _t(rh, dev), _t(rn, dev), _t(qh, dev), _t(qn, dev),
+            max_elems=1 << 22)]
+    assert all(torch.equal(a, b) for a, b in zip(got["cuda"], got["cpu"]))
+    assert int(got["cpu"][0].sum()) > 0
+
+
+@pytest.mark.parametrize("k", [21, 15])
+def test_windowed_positions_cuda_matches_cpu(gpu, k):
+    """Minmers of a 2.5-chunk sequence (hashed in three pieces) with
+    lowercase bytes and N: the card's hashes give the CPU's loci."""
+    from mash_tpu_torch.core.engine import DEFAULT_CHUNK, SketchEngine
+
+    seq = _seq(k, b"ACGTACGTacgN", int(2.5 * DEFAULT_CHUNK)).tobytes()
+    params = default_nucleotide_params(k, 100, 42)
+    params.window_size = 10000
+    got = [SketchEngine(params, device=dev).windowed_positions(seq)
+           for dev in ("cuda", "cpu")]
+    assert len(got[0][0]) > 1000
+    for a, b in zip(got[0], got[1]):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_within_find_cuda_match_cpu(gpu, tmp_path, monkeypatch):
+    """``within`` (a FASTA reference sketched by ``sketch_select``, and
+    sketches against sketches) and ``find`` (against the FASTA and a
+    ``sketch -W`` .msw) on the card print what they print on the CPU."""
+    genome = _seq(31, b"ACGT", 300000)
+    genome[100000:110000] += 32
+    comp = bytes.maketrans(b"ACGT", b"TGCA")
+    ref = tmp_path / "ref.fa"
+    ref.write_bytes(b">g0 genome\n" + genome.tobytes() + b"\n")
+    frags = tmp_path / "frags.fa"
+    rng = np.random.default_rng(32)
+    with open(frags, "wb") as f:
+        for i in range(8):
+            p = int(rng.integers(0, genome.size - 10000))
+            frag = genome[p : p + 10000].tobytes().upper()
+            f.write(b">f%d\n%s\n" % (i, frag.translate(comp)[::-1]
+                                     if i % 2 else frag))
+    before = sk.LAUNCHES["sketch_select"]
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        msw = str(tmp_path / ("ref_%s.msw" % dev))
+        msh = str(tmp_path / ("frags_%s" % dev))
+        outs[dev] = [
+            _cli(monkeypatch, dev, ["within", "-s", "10000", str(ref),
+                                    str(frags)]),
+            _cli(monkeypatch, dev, ["sketch", "-i", "-o", msh, str(frags)]),
+            _cli(monkeypatch, dev, ["within", "-e", "1", msh + ".msh",
+                                    msh + ".msh"]),
+            _cli(monkeypatch, dev, ["find", str(ref), str(frags)]),
+            _cli(monkeypatch, dev, ["sketch", "-W", "-s", "100", "-o", msw,
+                                    str(ref)]),
+            _cli(monkeypatch, dev, ["find", "-b", "1", msw, str(frags)]),
+            open(msw, "rb").read(),
+        ]
+        # the output files' names in stderr ("Writing to ...")
+        outs[dev] = [o if isinstance(o, bytes) else
+                     (o[0], o[1].replace("_%s." % dev, "_DEV."))
+                     for o in outs[dev]]
+    assert outs["cuda"] == outs["cpu"]
+    assert sk.LAUNCHES["sketch_select"] > before
+    assert len(outs["cpu"][5][0].splitlines()) == 8
