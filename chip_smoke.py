@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of mash_tpu_torch on one GPU: sketch -> dist, screen, reads,
-per-record sketches, triangles, windowed search and containment.
+per-record sketches, triangles, windowed search and containment, then two
+ranks on the card and the mesh functions.
 
 Run from the root of a checkout on a machine with an NVIDIA H100 and the
 CUDA toolkit:
@@ -66,10 +67,30 @@ Phases (any failure exits non-zero before the result lines):
    the ``sketch -W`` line carries the windowed hash's); cross-checked
    against the CPU's plain path on genome 0's ``.msw``, ``find`` of 8
    fragments, ``within`` of 128 record sketches and the ``within`` of
-   genome 0's FASTA.
+   genome 0's FASTA;
+9. two ranks and the mesh: ``dist -d 0.15`` of the 4096 record sketches
+   against themselves (streamed) in one process, then two processes of
+   this script (``--rank-worker``) on the one card, joined by gloo
+   (``MASH_TPU_TORCH_COORDINATOR``, ``..._NUM_PROCESSES``,
+   ``..._PROCESS_ID``), run ``sketch -r`` of phase 6's two FASTQ files
+   (one a rank), ``triangle`` of the 4096 record sketches, that ``dist
+   -d 0.15``, ``screen`` and ``taxscreen`` of the 64 genomes (32 a rank),
+   ``within -e 1`` of the record sketches against the genomes and
+   ``find`` of 8 fragments against genome 0's FASTA; the ``.msh`` must
+   equal phase 6's bytes, the stripes (512 rows, alternate ranks) in
+   stripe order the single process's stdout, and rank 0's ``screen``,
+   ``taxscreen``, ``within`` and ``find`` stdout the single process's,
+   rank 1's empty; K1, K3 and K4 must launch on both ranks.  Each command
+   prints both ranks' walls beside the single process's (two ranks on one
+   card check the assembly rules; they are no scaling figure).  Then
+   ``parallel.mesh``'s ``sharded_sketch_chunks`` ([32, 1 MiB]),
+   ``sharded_pairwise`` (64 x 64 and 1024 x 1024) and
+   ``sharded_screen_counts`` (one ``screen`` batch against the ~10^7 DB
+   in two ranges) over ``[cuda:0, cuda:0]`` must equal the one-device
+   route exactly.
 
 Every kernel's launch count is reset just before each main-path command
-of phases 4 to 8 and read just after it; the kernels that command runs
+of phases 4 to 9 and read just after it; the kernels that command runs
 must have launched, and no ``torch.sort`` call of the screen counter may
 be left on the screen commands' path.  Each main-path command prints one
 JSON line with its wall seconds and the wall seconds of its stages
@@ -1056,13 +1077,21 @@ def write_plasmids(rng, path) -> int:
     return int(lengths.sum()) * FAMILY_SIZE
 
 
+# stdout, stderr and wall seconds of each main-path command of phases 4 to
+# 8, by name: phase 9 holds its two-rank runs against them
+MAIN_RUNS: dict = {}
+
+
 def counted_cli(name, argv, kernels, profile, cmd_launches, extra,
                 stderr=None):
     """``timed_cli`` on the card with every launch counter reset just
     before; the kernels named must have launched.  The counts go to
-    ``cmd_launches[name]``; returns stdout and the JSON line."""
+    ``cmd_launches[name]``, the outputs and wall to ``MAIN_RUNS[name]``;
+    returns stdout and the JSON line."""
     reset_launches()
-    out, _, line = timed_cli(name, argv, GPU, profile, extra, stderr)
+    err = [] if stderr is None else stderr
+    out, _, line = timed_cli(name, argv, GPU, profile, extra, err)
+    MAIN_RUNS[name] = {"out": out, "err": err[-1], "wall_s": line["wall_s"]}
     cmd_launches[name] = launches = read_launches()
     for kernel in kernels:
         require(launches[kernel] > 0, "%s did not launch %s" % (name, kernel))
@@ -1370,7 +1399,11 @@ def find_hits(out: str) -> dict:
 def phase_windowed(folder, rng, paths, all_msh, plasmids_msh, cmd_launches,
                    profile=None):
     """sketch -W, find and within through the CLI, each with every launch
-    counter reset just before it; then cross-checks against the CPU."""
+    counter reset just before it; then cross-checks against the CPU.
+    Returns the 8-fragment FASTA, its ``find`` stdout against genome 0
+    and that call's wall seconds."""
+    import torch
+
     from mash_tpu_torch.io import capnp_msh
 
     frags = os.path.join(folder, "fragments.fa")
@@ -1464,8 +1497,12 @@ def phase_windowed(folder, rng, paths, all_msh, plasmids_msh, cmd_launches,
     head = os.path.join(folder, "fragments_head.fa")
     with open(frags, "rb") as f, open(head, "wb") as g:
         g.writelines(f.readline() for _ in range(2 * N_CROSS_FRAGMENTS))
-    require(run_cli(["find", msw0["gpu"], head], GPU)
-            == run_cli(["find", msw0["gpu"], head], CPU),
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    find_head = run_cli(["find", msw0["gpu"], head], GPU)
+    torch.cuda.synchronize()
+    find_head_wall = time.perf_counter() - t0
+    require(find_head == run_cli(["find", msw0["gpu"], head], CPU),
             "find of %d fragments differs from the CPU's" % N_CROSS_FRAGMENTS)
     first = os.path.join(folder, "plasmids_first.msh")
     msh = capnp_msh.read_msh(plasmids_msh)
@@ -1479,6 +1516,304 @@ def phase_windowed(folder, rng, paths, all_msh, plasmids_msh, cmd_launches,
     require((cpu_out, err[0]) == within_gpu,
             "within_fasta differs from the CPU's")
     print("phase windowed: ok", flush=True)
+    return head, find_head, find_head_wall
+
+
+# -- two ranks on one card, and the mesh (phase 9) -------------------------
+
+RANKS = 2
+RANK_TIMEOUT_S = 600
+# ``stream_pair_stripes``' row block on CUDA: the stripes' unit of
+# ownership (rank j % RANKS owns stripe j)
+STRIPE_ROWS = 512
+TWO_RANK_NOTE = ("two ranks on one card and one host: a check of the "
+                 "assembly rules, not a scaling figure")
+# the mesh of phase 9: the one card, twice
+MESH_DEVICES = ("cuda:0", "cuda:0")
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def rank_worker(cfg_path: str) -> int:
+    """One rank of phase 9 (``chip_smoke.py --rank-worker CFG``): joins
+    the gloo group that ``MASH_TPU_TORCH_COORDINATOR``,
+    ``..._NUM_PROCESSES`` and ``..._PROCESS_ID`` describe, runs each of
+    the config's commands through ``mash_tpu_torch.__main__.main`` on the
+    card with every launch counter reset just before it, and writes its
+    stdout, its stderr, its wall seconds and its launch counts to files."""
+    with open(cfg_path) as f:
+        cfg = json.load(f)
+    sys.path.insert(0, ROOT)
+    import torch
+
+    from mash_tpu_torch.__main__ import main as cli
+    from mash_tpu_torch.commands import command_registry
+    from mash_tpu_torch.parallel import multihost as mh
+
+    require(mh.maybe_init_distributed() and mh.process_count() == RANKS,
+            "no process group of %d ranks" % RANKS)
+    rank = mh.process_index()
+    command_registry()
+    results = {}
+    for name, argv in cfg["commands"]:
+        reset_launches()
+        torch.cuda.synchronize()
+        out, err = io.StringIO(), io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = cli(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        require(rc in (0, None), "rank %d: %s exited %s:\n%s"
+                % (rank, name, rc, err.getvalue()[-2000:]))
+        base = os.path.join(cfg["folder"], "rank%d_%s" % (rank, name))
+        for ext, text in ((".out", out.getvalue()), (".err", err.getvalue())):
+            with open(base + ext, "w") as f:
+                f.write(text)
+        results[name] = {"wall_s": wall, "launches": read_launches()}
+    with open(os.path.join(cfg["folder"], "rank%d.json" % rank), "w") as f:
+        json.dump(results, f)
+    return 0
+
+
+def run_ranks(folder, commands) -> list:
+    """``commands`` (``[name, argv]`` pairs) in RANKS processes of this
+    script on the one card, joined by gloo; returns each rank's results.
+    Every rank must exit 0 within RANK_TIMEOUT_S: on the first failure
+    the others are killed, and no process outlives the call."""
+    import subprocess
+
+    cfg = os.path.join(folder, "ranks.json")
+    with open(cfg, "w") as f:
+        json.dump({"folder": folder, "commands": commands}, f)
+    port = free_port()
+    procs, logs = [], []
+    try:
+        for rank in range(RANKS):
+            env = dict(os.environ, **GPU, MASH_TPU_TORCH_COORDINATOR=(
+                "127.0.0.1:%d" % port), MASH_TPU_TORCH_NUM_PROCESSES=str(
+                RANKS), MASH_TPU_TORCH_PROCESS_ID=str(rank))
+            logs.append(open(os.path.join(folder, "rank%d.log" % rank), "w+"))
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--rank-worker",
+                 cfg], env=env, cwd=ROOT, stdout=logs[-1],
+                stderr=subprocess.STDOUT))
+        deadline = time.monotonic() + RANK_TIMEOUT_S
+        while (any(p.poll() is None for p in procs)
+               and not any(p.poll() for p in procs)
+               and time.monotonic() < deadline):
+            time.sleep(0.1)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        tails = []
+        for log in logs:
+            log.seek(0)
+            tails.append(log.read()[-3000:])
+            log.close()
+    for rank, p in enumerate(procs):
+        require(p.returncode == 0, "rank %d exited %s:\n%s"
+                % (rank, p.returncode, tails[rank]))
+    out = []
+    for rank in range(RANKS):
+        with open(os.path.join(folder, "rank%d.json" % rank)) as f:
+            out.append(json.load(f))
+    return out
+
+
+def rank_text(folder, rank, name, ext=".out") -> str:
+    with open(os.path.join(folder, "rank%d_%s%s" % (rank, name, ext))) as f:
+        return f.read()
+
+
+def in_stripe_order(texts, stripe_of_line) -> str:
+    """The ranks' outputs concatenated in stripe order; each line must
+    come from the rank that owns its stripe."""
+    by_stripe: dict = {}
+    for rank, text in enumerate(texts):
+        for ln in text.splitlines(keepends=True):
+            j = stripe_of_line(ln)
+            require(j % RANKS == rank, "rank %d printed a line of stripe %d"
+                    % (rank, j))
+            by_stripe.setdefault(j, []).append(ln)
+    return "".join("".join(by_stripe[j]) for j in sorted(by_stripe))
+
+
+def phase_ranks(folder, paths, all_msh, plasmids_msh, find_head):
+    """The main-path commands in two ranks on the one card (gloo), each
+    held against its single-process output."""
+    from mash_tpu_torch.io import capnp_msh
+
+    t_phase = time.perf_counter()
+    names = [r.name for r in capnp_msh.read_msh(plasmids_msh).references]
+    row = {name: i for i, name in enumerate(names)}
+    reads = [os.path.join(folder, "reads_R%d.fq" % i) for i in (1, 2)]
+    pooled = os.path.join(folder, "reads_2rank.msh")
+    dist_argv = ["dist", "-d", "0.15", plasmids_msh, plasmids_msh]
+    single_dist = {}
+    counted_cli("dist_d", dist_argv, ["pairwise32"], None, single_dist,
+                lambda w: {})
+    taxdir = os.path.join(folder, "taxonomy")
+    commands = [
+        ["sketch_reads", ["sketch", "-r", "-o", pooled, *reads]],
+        ["triangle_4096", ["triangle", plasmids_msh]],
+        ["dist_d", dist_argv],
+        ["screen", ["screen", os.path.join(folder, "screen_db.msh"),
+                    *paths]],
+        ["taxscreen", ["taxscreen", "-t", taxdir,
+                       os.path.join(folder, "tax_db.msh"), *paths]],
+        ["within_plasmids", ["within", "-e", "1", all_msh, plasmids_msh]],
+        ["find_head", ["find", paths[0], find_head[0]]],
+    ]
+    kernels = {"sketch_reads": ["sketch_select"],
+               "triangle_4096": ["pairwise32"], "dist_d": ["pairwise32"],
+               "screen": ["screen_table", "screen_count"],
+               "taxscreen": ["screen_table", "screen_count"]}
+    t0 = time.perf_counter()
+    results = run_ranks(folder, commands)
+    print("phase ranks: %d ranks ran %d commands in %.1f s (startup "
+          "included)" % (RANKS, len(commands), time.perf_counter() - t0),
+          flush=True)
+    for name, _argv in commands:
+        for rank in range(RANKS):
+            for kernel in kernels.get(name, ()):
+                require(results[rank][name]["launches"][kernel] > 0,
+                        "rank %d's %s did not launch %s" % (rank, name,
+                                                              kernel))
+        single = (MAIN_RUNS[name] if name != "find_head"
+                  else {"out": find_head[1], "wall_s": find_head[2]})
+        print(json.dumps({
+            "command": "ranks2_" + name, "note": TWO_RANK_NOTE,
+            "rank_walls_s": [r[name]["wall_s"] for r in results],
+            "single_wall_s": single["wall_s"],
+            "rank_launches": [r[name]["launches"] for r in results]}),
+            flush=True)
+    with open(pooled, "rb") as a, open(os.path.join(folder, "reads.msh"),
+                                       "rb") as b:
+        require(a.read() == b.read(), "the two-rank sketch -r .msh differs "
+                "from the single process's")
+    outs = [rank_text(folder, r, "triangle_4096") for r in range(RANKS)]
+    require(outs[0].startswith("\t%d\n" % len(names))
+            and not outs[1].startswith("\t"), "the PHYLIP header is not "
+            "on rank 0 alone")
+    require(in_stripe_order(outs, lambda ln: 0 if ln.startswith("\t") else
+                            row[ln.split("\t", 1)[0].rstrip("\n")]
+                            // STRIPE_ROWS)
+            == MAIN_RUNS["triangle_4096"]["out"], "the two ranks' triangle "
+            "in stripe order differs from the single process's")
+    max_p = [ln for ln in MAIN_RUNS["triangle_4096"]["err"].splitlines()
+             if ln.startswith("Max p-value")]
+    errs = [rank_text(folder, r, "triangle_4096", ".err")
+            for r in range(RANKS)]
+    require(len(max_p) == 1 and max_p[0] in errs[0].splitlines()
+            and "Max p-value" not in errs[1], "Max p-value is not rank 0's "
+            "alone, or differs")
+    outs = [rank_text(folder, r, "dist_d") for r in range(RANKS)]
+    require(in_stripe_order(outs, lambda ln: row[ln.split("\t")[1]]
+                            // STRIPE_ROWS) == MAIN_RUNS["dist_d"]["out"],
+            "the two ranks' dist -d 0.15 in stripe order differs from the "
+            "single process's")
+    require(all(outs), "a rank printed no dist line")
+    for name in ("screen", "taxscreen", "within_plasmids", "find_head"):
+        want = find_head[1] if name == "find_head" else MAIN_RUNS[name]["out"]
+        require(rank_text(folder, 0, name) == want and want,
+                "rank 0's %s differs from the single process's" % name)
+        require(rank_text(folder, 1, name) == "", "rank 1 printed %s" % name)
+    print("phase ranks: ok in %.1f s" % (time.perf_counter() - t_phase),
+          flush=True)
+
+
+def phase_mesh(rng, folder, paths):
+    """The mesh functions over ``[cuda:0, cuda:0]`` against the one-device
+    route on the same inputs: exact equality."""
+    import numpy as np
+    import torch
+
+    from mash_tpu_torch.core.params import default_nucleotide_params
+    from mash_tpu_torch.io import capnp_msh
+    from mash_tpu_torch.io.ingest import IngestPipeline
+    from mash_tpu_torch.ops import distance, screen_ops, sketch_ops
+    from mash_tpu_torch.ops.kmers import alphabet_bytes
+    from mash_tpu_torch.ops.sketch_kernel import sketch_chunks_fused
+    from mash_tpu_torch.parallel import mesh
+    from mash_tpu_torch.utils.profiling import pop_stage_totals
+
+    t_phase = time.perf_counter()
+    devices = [torch.device(d) for d in MESH_DEVICES]
+    params = default_nucleotide_params(K, S, 42)
+
+    def check(name, shape, sharded, single, kernels, equal):
+        reset_launches()
+        t0 = time.perf_counter()
+        got = sharded()
+        torch.cuda.synchronize()
+        t_sharded = time.perf_counter() - t0
+        launches = read_launches()
+        t0 = time.perf_counter()
+        want = single()
+        torch.cuda.synchronize()
+        t_single = time.perf_counter() - t0
+        require(equal(got, want), "%s on %s differs from one device's"
+                % (name, shape))
+        for kernel, n in kernels.items():
+            require(launches[kernel] == n, "%s on %s launched %s %d times, "
+                    "not %d" % (name, shape, kernel, launches[kernel], n))
+        print(json.dumps({"mesh": name, "devices": list(MESH_DEVICES),
+                          "shape": shape, "equal": True,
+                          "sharded_s": t_sharded, "single_s": t_single,
+                          "launches": launches}), flush=True)
+
+    def same(a, b):
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+
+    chunks = torch.from_numpy(random_chunks(rng, 32, 1 << 20)).to(devices[0])
+    kw = dict(alphabet=alphabet_bytes(params.alphabet), k=K, seed=42,
+              use64=True, noncanonical=False, preserve_case=False)
+    check("sharded_sketch_chunks", "[32, 1 MiB] k=%d s=%d" % (K, S),
+          lambda: mesh.sharded_sketch_chunks(devices, params, chunks, S),
+          lambda: sketch_ops.tree_merge(*sketch_chunks_fused(chunks, **kw,
+                                                             s=S), s=S),
+          {"sketch_select": 2}, same)
+    for n in (64, 1024):
+        H, N = distance._upload(*distance.pad_sketches(
+            list(overlap_sketches(rng, n, S)), S), devices[0])
+        check("sharded_pairwise", "%d x %d s=%d 64-bit" % (n, n, S),
+              lambda: mesh.sharded_pairwise(devices, H, N, H, N, S),
+              lambda: distance.pairwise_common_denom_auto(H, N, H, N, cap=S),
+              {"pairwise64": 2} if n == 64 else {"pairwise32": 2}, same)
+    db = np.unique(np.concatenate([r.hashes for r in capnp_msh.read_msh(
+        os.path.join(folder, "screen_db.msh")).references]))
+    pipe = IngestPipeline(paths[:8], K, 1 << 20, 32, pack_mode=0)
+    try:
+        batch = torch.from_numpy(next(iter(pipe.batches()))).to(devices[0])
+    finally:
+        pipe.close()
+
+    def one_device():
+        _f, fold_rows, c0, finalize = screen_ops.make_screen_fold(
+            params, db, S, devices[0])
+        c0, state = fold_rows(c0, sketch_ops.empty_state(S, devices[0]),
+                              batch)
+        return finalize(c0), state
+
+    def same_counts(a, b):
+        return bool(np.array_equal(a[0], b[0])) and same(a[1], b[1])
+
+    check("sharded_screen_counts", "batch %s against %d DB hashes in %d "
+          "ranges" % (list(batch.shape), len(db), len(devices)),
+          lambda: mesh.sharded_screen_counts(devices, params, db, [batch], S),
+          one_device, {"screen_table": 2, "screen_count": 2}, same_counts)
+    pop_stage_totals()  # the one-device fold's stage: no command's
+    print("phase mesh: ok in %.1f s" % (time.perf_counter() - t_phase),
+          flush=True)
 
 
 def main(argv=None) -> int:
@@ -1491,12 +1826,15 @@ def main(argv=None) -> int:
                     dest="profile", help="instead, run each main-path "
                     "command under cProfile and list its ten costliest "
                     "host functions")
+    ap.add_argument("--rank-worker", metavar="CFG", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
     if not os.path.isdir(os.path.join(ROOT, "mash_tpu_torch")):
         raise SmokeError("run chip_smoke.py from a checkout of the "
                          "repository (mash_tpu_torch/ is missing)")
     sys.path.insert(0, ROOT)
+    if args.rank_worker:
+        return rank_worker(args.rank_worker)
     # stage timings are switched on when the package is first imported
     os.environ["MASH_TPU_TORCH_TIMINGS"] = "1"
     import numpy as np
@@ -1531,8 +1869,10 @@ def main(argv=None) -> int:
                                    args.profile)
         phase_triangle(report, folder, paths, all_msh, plasmids_msh,
                        cmd_launches, args.profile)
-        phase_windowed(folder, rng, paths, all_msh, plasmids_msh,
-                       cmd_launches, args.profile)
+        find_head = phase_windowed(folder, rng, paths, all_msh, plasmids_msh,
+                                   cmd_launches, args.profile)
+        phase_ranks(folder, paths, all_msh, plasmids_msh, find_head)
+        phase_mesh(rng, folder, paths)
     # each kernel's count from the run of the path that calls it
     for name in ("screen_table", "screen_count"):
         launches[name] = screen_launches[name]

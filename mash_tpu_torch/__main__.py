@@ -2,7 +2,10 @@
 
 Usage: ``python -m mash_tpu_torch <command> [options]`` or the
 ``mash-tpu-torch`` console script.  Commands run on ``cuda`` unless
-``MASH_TPU_TORCH_DEVICE=cpu`` asks for the CPU.
+``MASH_TPU_TORCH_DEVICE=cpu`` asks for the CPU.  A multi-process launch
+sets ``MASH_TPU_TORCH_COORDINATOR``, ``MASH_TPU_TORCH_NUM_PROCESSES`` and
+``MASH_TPU_TORCH_PROCESS_ID`` in every process (or runs under
+``torchrun``).
 """
 
 from __future__ import annotations
@@ -43,6 +46,11 @@ def print_license() -> None:
 def main(argv=None) -> int:
     if argv is None:
         argv = sys.argv[1:]
+    # join the process group a multi-process launch describes (see
+    # parallel/multihost.py); a no-op for a plain run
+    from mash_tpu_torch.parallel.multihost import maybe_init_distributed
+
+    maybe_init_distributed()
     commands = command_registry()
 
     if not argv:

@@ -1,7 +1,7 @@
 """``mash within`` — containment scores (reference ``CommandContain.cpp``,
 compile-gated behind ``COMMAND_WITHIN`` there, always available here).
 
-Single process: everything is computed and written here.
+Under a multi-process launch rank 0 alone computes and writes everything.
 """
 
 from __future__ import annotations
@@ -24,6 +24,7 @@ from mash_tpu_torch.ops.distance import (
     pad_sketches,
     pairwise_containment,
 )
+from mash_tpu_torch.parallel import multihost as mh
 from mash_tpu_torch.utils import resolve_device, stage
 
 
@@ -76,6 +77,11 @@ class CommandContain(Command):
 
         err = sys.stderr
         out = sys.stdout
+        # small-output command: rank 0 computes and writes everything
+        # (a multi-process launch joins the group for every command;
+        # without this gate every process would print the full output)
+        if mh.process_index() != 0:
+            return 0
         params = sketch_parameter_setup(self)
         if params is None:
             return 1

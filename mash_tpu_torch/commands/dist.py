@@ -2,8 +2,10 @@
 
 The comparison itself runs as a device kernel over padded sketch matrices
 (``mash_tpu_torch.ops.distance``); distance/p-value post-processing and text
-output stay on host in float64.  Single process: everything is computed
-and written here.
+output stay on host in float64.  Under a multi-process launch each process
+computes and prints only the streamed row stripes it owns (the outputs
+concatenate in stripe order), and rank 0 alone the header and the
+unstreamed path.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from mash_tpu_torch.core.loader import (
     init_from_files,
     SUFFIX_SKETCH,
 )
+from mash_tpu_torch.parallel import multihost as mh
 from mash_tpu_torch.utils import resolve_device
 from mash_tpu_torch.ops.distance import (
     common_denom_tiled,
@@ -189,7 +192,10 @@ class CommandDistance(Command):
                     warning_count += 1
             err.write("done.\n")
 
-        if table:
+        rank0 = mh.process_index() == 0
+        if table and rank0:
+            # per-process outputs concatenate in stripe order, so the
+            # header appears once
             out.write("#query")
             for ref in sketch_ref.references:
                 out.write("\t" + ref.name)
@@ -288,7 +294,8 @@ class CommandDistance(Command):
         n_cells = len(queries) * len(refs)
         if n_cells > STREAM_MIN_CELLS and cap < 65536:
             for i0, stripe in stream_pair_stripes(
-                qry_h, qry_n, ref_h, ref_n, cap, device
+                qry_h, qry_n, ref_h, ref_n, cap, device,
+                stripe_filter=mh.owns_stripe,
             ):
                 rows = min(stripe.shape[0], len(queries) - i0)
                 if rows <= 0:
@@ -300,7 +307,8 @@ class CommandDistance(Command):
                     ),
                     (stripe[:rows] >> np.uint32(16)).astype(np.int64),
                 )
-        else:
+        elif rank0:
+            # small outputs: rank 0 computes and writes everything
             if n_cells > STREAM_MIN_CELLS:
                 err.write(
                     "WARNING: sketch size %d disables the streamed "
@@ -314,7 +322,7 @@ class CommandDistance(Command):
             )
             emit_block(0, common, denom)
 
-        if warning_count > 0 and not params.reads:
+        if warning_count > 0 and not params.reads and rank0:
             warn_kmer_size(
                 params,
                 self,

@@ -7,7 +7,8 @@ reference's hash->loci index and clustered into query-length windows;
 clusters scoring above the threshold are reported (optionally only the
 best N).  The query minmers' hashes run on the device
 (:meth:`SketchEngine.windowed_positions`); the lookup and clustering run
-on the host.  Single process: everything is computed and written here.
+on the host.  Under a multi-process launch rank 0 alone computes and
+writes everything.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ from mash_tpu_torch.core.loader import (
 )
 from mash_tpu_torch.io.fastx import read_fastx
 from mash_tpu_torch.io.formatting import cpp_double
+from mash_tpu_torch.parallel import multihost as mh
 from mash_tpu_torch.utils import resolve_device
 
 # find's uppercase rule: c > 90 -> c - 32 for every byte
@@ -114,6 +116,11 @@ class CommandFind(Command):
 
         err = sys.stderr
         out = sys.stdout
+        # small-output command: rank 0 computes and writes everything
+        # (a multi-process launch joins the group for every command;
+        # without this gate every process would print the full output)
+        if mh.process_index() != 0:
+            return 0
         threshold = self.get_option("threshold").get_argument_as_number()
         best = int(self.get_option("best").get_argument_as_number())
         if best < 0:

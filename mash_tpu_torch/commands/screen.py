@@ -5,8 +5,10 @@ Streams mixture files read-packed into chunks (the reference's 1 MiB
 the device, counts DB membership with the ``screen_count`` kernel, a
 probe of a hash table of the DB (``ops.screen_ops.ScreenCounter``), and
 estimates the mixture's cardinality with the bottom-s fold.  Identity,
-p-value and median post-processing happen on the host.  One process, one device:
-``mash_tpu``'s multi-host sharding of the mixture is not ported.
+p-value and median post-processing happen on the host.  Under a
+multi-process launch the mixture files are sharded over the processes,
+their counts summed and their cardinality states merged
+(``parallel.multihost``); rank 0 alone writes the report.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from mash_tpu_torch.io.formatting import cpp_double
 from mash_tpu_torch.io.ingest import IngestPipeline, fast_ingest_eligible
 from mash_tpu_torch.ops import screen_ops, sketch_ops
 from mash_tpu_torch.ops.kmers import unpack_chunks
+from mash_tpu_torch.parallel import multihost as mh
 from mash_tpu_torch.utils import resolve_device, stage
 
 # The chunk sizes ``mash_tpu`` pads to (tiny inputs / full chunks), kept
@@ -179,7 +182,11 @@ def stream_mixture(params, db_hashes, inputs, trans, err, device):
 
     Writes the reference's "Streaming from"/"Translating from" line
     first.  Returns ``(finalize, counts, state, saw_any)``:
-    ``finalize(counts)`` gives the DB counts as uint32 numpy ``[H]``.
+    ``finalize(counts)`` gives this process's DB counts as uint32 numpy
+    ``[H]``.  Under a multi-process launch this process streams its
+    round-robin shard of ``inputs``; the returned state and ``saw_any``
+    are already merged over every process, and the counts are summed
+    with ``multihost.sum_counts_across_hosts``.
     """
     err.write(
         "%s%s...\n"
@@ -194,6 +201,9 @@ def stream_mixture(params, db_hashes, inputs, trans, err, device):
         params, db_hashes, s, device
     )
     state = sketch_ops.empty_state(s, device)
+    # counts are plain per-hash totals and the cardinality state merges
+    # associatively, so the reduction over the processes is exact
+    inputs = mh.shard_paths(inputs)
     if not trans and fast_ingest_eligible(inputs):
         counts, state, saw_any = stream_fold_fast(
             fold_rows, counts, state, inputs, k, params, device
@@ -207,6 +217,8 @@ def stream_mixture(params, db_hashes, inputs, trans, err, device):
         counts, state, saw_any = stream_fold(
             fold, counts, state, records, k, trans, device
         )
+    state = mh.merge_states_across_hosts(state, s)
+    _c, _t, saw_any = mh.reduce_meta_across_hosts(0, 0, saw_any)
     return finalize, counts, state, saw_any
 
 
@@ -317,7 +329,9 @@ class CommandScreen(Command):
 
         err.write("Summing shared...\n")
         with stage("screen:counts"):
-            counts_host = finalize(counts)
+            counts_host = mh.sum_counts_across_hosts(finalize(counts))
+        if mh.process_index() != 0:
+            return 0  # rank 0 writes the report
         min_cov = 1
         shared, depths = screen_ops.tally_shared(
             counts_host, seg_starts, ref_ids, len(refs), min_cov

@@ -1,8 +1,8 @@
 """``mash sketch`` (reference ``CommandSketch.cpp``).
 
 Genomes, reads mode (``-r``, ``-m``, ``-b``, ``-c``, ``-g``), ``-i``,
-``-M`` and windowed sketches (``-W``, written as ``.msw``).  One process
-writes the output.
+``-M`` and windowed sketches (``-W``, written as ``.msw``).  Under a
+multi-process launch only rank 0 writes the output.
 """
 
 from __future__ import annotations
@@ -19,6 +19,7 @@ from mash_tpu_torch.core.loader import (
     init_from_reads,
 )
 from mash_tpu_torch.io import capnp_msh
+from mash_tpu_torch.parallel.multihost import process_index
 
 
 class CommandSketch(Command):
@@ -165,6 +166,9 @@ class CommandSketch(Command):
         )
         if not has_suffix(prefix, suffix):
             prefix += suffix
+
+        if process_index() != 0:
+            return 0  # every process holds the merged sketch; rank 0 writes
 
         sys.stderr.write("Writing to %s...\n" % prefix)
         capnp_msh.write_msh(

@@ -1,8 +1,8 @@
 """``mash taxscreen`` (reference ``CommandTaxScreen.cpp``).
 
 Same streaming containment pipeline as ``screen`` (shared device
-kernels), followed by per-hash LCA assignment and a Kraken-style clade
-report.
+kernels, and the same multi-process sharding of the pool), followed by
+per-hash LCA assignment and a Kraken-style clade report, written by rank 0.
 """
 
 from __future__ import annotations
@@ -15,6 +15,7 @@ import numpy as np
 from mash_tpu_torch.cli.command import Command, Option
 from mash_tpu_torch.commands.screen import load_screen_db, stream_mixture
 from mash_tpu_torch.ops import screen_ops, sketch_ops
+from mash_tpu_torch.parallel import multihost as mh
 from mash_tpu_torch.taxonomy import TaxCounts, TaxDB, rollup_counts
 from mash_tpu_torch.utils import resolve_device, stage
 
@@ -195,7 +196,9 @@ class CommandTaxScreen(Command):
 
         err.write("Assigning LCA taxIDs to hashes ...\n")
         with stage("screen:counts"):
-            counts_host = finalize(counts_dev)
+            counts_host = mh.sum_counts_across_hosts(finalize(counts_dev))
+        if mh.process_index() != 0:
+            return 0  # rank 0 writes the report
         min_cov = 1
         tax_ids_arr = np.array(reference_tax_ids, dtype=np.int64)
 

@@ -2,7 +2,10 @@
 
 All-vs-all lower-triangle distances.  The pair space is tiled through the
 same device intersection kernels as ``dist``; output is relaxed PHYLIP or
-an edge list.  Single process: everything is computed and written here.
+an edge list.  Under a multi-process launch each process computes and
+prints only the streamed row stripes it owns (the outputs concatenate in
+stripe order); rank 0 alone prints the PHYLIP header, the max p-value and
+the unstreamed path.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ from mash_tpu_torch.ops.distance import (
     pad_sketches,
     stream_pair_stripes,
 )
+from mash_tpu_torch.parallel import multihost as mh
 from mash_tpu_torch.utils import resolve_device
 
 # Above this many sketches the full [N, N] matrices would not fit in
@@ -131,7 +135,8 @@ class CommandTriangle(Command):
         saw_zero_common = False
 
         for i0, stripe in stream_pair_stripes(
-            H, N, H, N, cap, device, triangle=True
+            H, N, H, N, cap, device, triangle=True,
+            stripe_filter=mh.owns_stripe,
         ):
             rows = stripe.shape[0]
             i1 = min(i0 + rows, n)
@@ -210,7 +215,7 @@ class CommandTriangle(Command):
                         fmt.phylip_cells(stripe[r, :i]).decode("ascii")
                     )
                     out.write("\n")
-        return pvalue_peak
+        return mh.max_across_hosts(pvalue_peak)
 
     def run(self) -> int:
         if len(self.arguments) < 1 or self.get_option("help").active:
@@ -267,7 +272,10 @@ class CommandTriangle(Command):
 
         refs = sketch.references
         n = len(refs)
-        if not edge:
+        rank0 = mh.process_index() == 0
+        if not edge and rank0:
+            # per-process outputs concatenate in stripe order, so the
+            # header block appears once
             out.write("\t%d\n" % n)
             out.write(
                 (refs[0].comment if comment else refs[0].name) + "\n"
@@ -284,14 +292,17 @@ class CommandTriangle(Command):
                 sketch, refs, H, N, cap, device, out, edge, comment,
                 pvalue_max, distance_max,
             )
-            if not edge:
+            if not edge and rank0:
                 err.write("Max p-value: %s\n" % cpp_double(pvalue_peak))
-            if warning_count > 0 and not params.reads:
+            if warning_count > 0 and not params.reads and rank0:
                 warn_kmer_size(
                     params, self, length_max, length_max_name,
                     random_chance, k_min, warning_count,
                 )
             return 0
+
+        if not rank0:
+            return 0  # small triangles: rank 0 computes and writes all
 
         if n > STREAM_MIN_SKETCHES:
             # the streamed path needs 16-bit cell packing (cap < 65536)

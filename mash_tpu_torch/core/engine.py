@@ -27,6 +27,7 @@ from mash_tpu_torch.core.sketch import SketchRef
 from mash_tpu_torch.ops import sketch_ops
 from mash_tpu_torch.ops.kmers import alphabet_bytes, hash_chunk, unpack_chunks
 from mash_tpu_torch.ops.sketch_kernel import sketch_chunks_auto
+from mash_tpu_torch.parallel.mesh import local_mesh, sharded_sketch_chunks
 from mash_tpu_torch.utils import resolve_device, stage
 
 DEFAULT_CHUNK = 1 << 20
@@ -64,10 +65,11 @@ def chunk_stream(
 
 
 class SketchEngine:
-    """Sketching pipeline for one parameter set on one device.
+    """Sketching pipeline for one parameter set.
 
     ``device`` defaults to ``cuda`` (or ``$MASH_TPU_TORCH_DEVICE``); the
-    CPU runs only when asked for.
+    CPU runs only when asked for.  ``cuda`` without an index spans every
+    visible GPU (``parallel.mesh.local_mesh``).
     """
 
     def __init__(
@@ -79,11 +81,25 @@ class SketchEngine:
         self.params = params
         self.chunk_len = chunk_len
         self.device = resolve_device(device)
+        self.devices = local_mesh(self.device)
         self._alpha = alphabet_bytes(params.alphabet)
 
-    def _fold_rows(self, state, chunks: torch.Tensor):
-        """Fold a ``[B, L]`` uint8 device batch into ``state``."""
+    def _fold_rows(self, state, chunks: torch.Tensor, chunk_len=None):
+        """Fold a ``[B, L]`` uint8 device batch into ``state``.
+
+        With ``chunk_len`` the rows are packed ingest rows (see
+        ``ops.kmers.unpack_chunks``).  When the engine spans several
+        devices and ``B`` divides by their count, the rows are sharded
+        over them (``parallel.mesh.sharded_sketch_chunks``); the fold is
+        associative, so this is exact.
+        """
         s = self.params.sketch_size
+        if len(self.devices) > 1 and chunks.shape[0] % len(self.devices) == 0:
+            merged = sharded_sketch_chunks(self.devices, self.params, chunks,
+                                           s, chunk_len=chunk_len)
+            return sketch_ops.merge_states(state, merged, s=s)
+        if chunk_len is not None:
+            chunks = unpack_chunks(chunks, chunk_len)
         sh, sc = sketch_chunks_auto(chunks, **self._hash_kw(), s=s)
         return sketch_ops.tree_merge(
             torch.cat([state[0][None], sh]),
@@ -164,10 +180,9 @@ class SketchEngine:
             while rows > 1 and not arr[rows - 1].any():
                 rows -= 1
             with stage("engine:fold_batch"):
-                dev = self._upload(arr[:rows])
-                if packed:
-                    dev = unpack_chunks(dev, self.chunk_len)
-                state = self._fold_rows(state, dev)
+                state = self._fold_rows(
+                    state, self._upload(arr[:rows]),
+                    self.chunk_len if packed else None)
         return state
 
     def sketch_seqs(self, seqs: Iterable[bytes]):

@@ -232,6 +232,7 @@ def stream_pair_stripes(
     row_block: int | None = None,
     tile_r: int | None = None,
     triangle: bool = False,
+    stripe_filter=None,
 ):
     """Yield ``(i0, stripe)`` row stripes of packed ``common | denom<<16``.
 
@@ -250,12 +251,22 @@ def stream_pair_stripes(
     real cell's denominator is ``cap``, so only ``common`` leaves the
     device, as uint16.  Each stripe is computed and read back before the
     next starts.  Requires ``cap < 65536``.
+
+    With ``stripe_filter(i0, row_block)`` only the stripes it accepts are
+    computed and yielded (``parallel.multihost.owns_stripe``: each process
+    its own).  ``row_block`` is rounded up to a multiple of every
+    process's device count, so that stripe boundaries agree in every
+    process.
     """
+    from mash_tpu_torch.parallel import multihost as mh
+
     if cap >= 65536:
         raise ValueError("packed stripes need cap < 65536")
     device = torch.device(device)
     big = device.type == "cuda"
     row_block = row_block or (512 if big else 32)
+    dev_mult = math.lcm(*(int(c) for c in mh.local_device_counts(device)))
+    row_block = dev_mult * -(-row_block // dev_mult)
     tile_r = tile_r or ((2048 if triangle else 4096) if big else 128)
     nq = qry_h.shape[0]
     nr = ref_h.shape[0]
@@ -290,6 +301,8 @@ def stream_pair_stripes(
         return packed.to(torch.int32).cpu().numpy().view(np.uint32)
 
     for i0 in range(0, nq, row_block):
+        if stripe_filter is not None and not stripe_filter(i0, row_block):
+            continue
         rows = min(row_block, nq - i0)
         cols = (i0 + rows - 1) if triangle else nr
         if cols <= 0:
@@ -319,8 +332,14 @@ def common_denom_tiled(
 
     Pads both sketch sets to tile multiples and loops over tiles; tile
     sizes default to 4096 on CUDA (the kernels grid over a whole tile)
-    and 128 on the CPU.  Returns numpy int32 ``[NQ, NR]`` arrays.
+    and 128 on the CPU.  When ``device`` spans several devices
+    (``parallel.mesh.local_mesh``), ``tile_q`` is padded to a multiple of
+    their count and each tile's query rows are split over them
+    (``parallel.mesh.sharded_pairwise``).  Returns numpy int32 ``[NQ,
+    NR]`` arrays.
     """
+    from mash_tpu_torch.parallel.mesh import local_mesh, sharded_pairwise
+
     nq = qry_h.shape[0]
     nr = ref_h.shape[0]
     common = np.zeros((nq, nr), dtype=np.int32)
@@ -334,6 +353,10 @@ def common_denom_tiled(
     # never pad a small input all the way up to a huge tile
     tile_q = min(tile_q, 8 * ((nq + 7) // 8))
     tile_r = min(tile_r, 8 * ((nr + 7) // 8))
+    devices = local_mesh(device)
+    n_dev = len(devices)
+    if n_dev > 1:
+        tile_q = n_dev * -(-tile_q // n_dev)
 
     qh = _pad_rows_np(qry_h, tile_q, _EMPTY_U64)
     qn = _pad_rows_np(qry_n, tile_q, 0)
@@ -345,9 +368,13 @@ def common_denom_tiled(
             with stage("distance:pair_tile"):
                 r, n_r = _upload(rh[ri : ri + tile_r],
                                  rn[ri : ri + tile_r], device)
-                c, d = pairwise_common_denom_auto(
-                    q, n_q, r, n_r, cap=cap, use64=use64
-                )
+                if n_dev > 1:
+                    c, d = sharded_pairwise(devices, q, n_q, r, n_r, cap,
+                                            use64=use64)
+                else:
+                    c, d = pairwise_common_denom_auto(
+                        q, n_q, r, n_r, cap=cap, use64=use64
+                    )
                 cq = min(tile_q, nq - qi)
                 cr = min(tile_r, nr - ri)
                 if cq > 0 and cr > 0:

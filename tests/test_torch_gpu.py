@@ -25,7 +25,10 @@ above ``BIG_DB_MIN`` and a batch of more than 2^31 bytes.  Commands on
 the card must also print and write what they do on the CPU: ``sketch
 -i`` with rows that run plain, take the kernel, or fail its certificate,
 ``sketch -r`` and ``-r -m 2``, the triangle's stripes with their ragged
-last tiles, and the streamed ``triangle``.
+last tiles, and the streamed ``triangle``.  The mesh functions over
+``[cuda:0, cuda:0]`` must equal the one-device route, and two gloo ranks
+on the card must assemble ``screen`` and the streamed ``triangle`` into
+the one-process output.
 """
 
 import contextlib
@@ -713,3 +716,162 @@ def test_within_find_cuda_match_cpu(gpu, tmp_path, monkeypatch):
     assert outs["cuda"] == outs["cpu"]
     assert sk.LAUNCHES["sketch_select"] > before
     assert len(outs["cpu"][5][0].splitlines()) == 8
+
+
+# -- the mesh over one card twice, and two ranks on one card ----------------
+
+def _mesh2(gpu):
+    return [torch.device("cuda", 0)] * 2
+
+
+def test_mesh_sketch_cuda_matches_one_device(gpu):
+    """``sharded_sketch_chunks`` over ``[cuda:0, cuda:0]`` (K1 a half)
+    equals the one-device fold, raw and packed rows alike."""
+    from mash_tpu_torch.ops import sketch_ops
+    from mash_tpu_torch.ops.kmers import unpack_chunks
+    from mash_tpu_torch.parallel import mesh
+
+    params = default_nucleotide_params(21, 1000, 42)
+    kw = dict(alphabet=DNA, k=21, seed=42, use64=True, noncanonical=False,
+              preserve_case=False)
+    rows = torch.from_numpy(_seq(80, b"ACGTacgtN", (8, 1 << 18))).to(gpu)
+    before = sk.LAUNCHES["sketch_select"]
+    got = mesh.sharded_sketch_chunks(_mesh2(gpu), params, rows, 1000)
+    assert sk.LAUNCHES["sketch_select"] == before + 2
+    want = sketch_ops.tree_merge(*sk.sketch_chunks_fused(rows, **kw, s=1000),
+                                 s=1000)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    # packed rows (2-bit codes + mask), unpacked on each device
+    L = 1 << 16
+    packed = torch.from_numpy(_seq(81, bytes(range(256)), (4, L // 4 + L // 8))
+                              ).to(gpu)
+    got = mesh.sharded_sketch_chunks(_mesh2(gpu), params, packed, 1000,
+                                     chunk_len=L)
+    want = sketch_ops.tree_merge(*sk.sketch_chunks_auto(
+        unpack_chunks(packed, L), **kw, s=1000), s=1000)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("n", [48, 600], ids=["pairwise64", "ranked"])
+def test_mesh_pairwise_cuda_matches_one_device(gpu, n):
+    """``sharded_pairwise`` over ``[cuda:0, cuda:0]`` equals the one-device
+    route: K2 under 65 536 pairs a half, rank keys and K3 above."""
+    from mash_tpu_torch.parallel import mesh
+
+    rng = np.random.default_rng(n)
+    H, N = _sketches(rng, n, 1000, 3000)
+    Ht, Nt = _t(H, gpu), _t(N, gpu)
+    kernel = "pairwise64" if n == 48 else "pairwise32"
+    before = pk.LAUNCHES[kernel]
+    got = mesh.sharded_pairwise(_mesh2(gpu), Ht, Nt, Ht, Nt, 1000)
+    assert pk.LAUNCHES[kernel] == before + 2
+    want = td.pairwise_common_denom_auto(Ht, Nt, Ht, Nt, cap=1000)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_mesh_screen_cuda_matches_one_device(gpu):
+    """``sharded_screen_counts`` over ``[cuda:0, cuda:0]`` (one K4 table a
+    DB range) gives the one-device fold's counts and cardinality state."""
+    from mash_tpu_torch.ops import sketch_ops
+    from mash_tpu_torch.ops.kmers import hash_chunk
+    from mash_tpu_torch.parallel import mesh
+
+    params = default_nucleotide_params(21, 1000, 42)
+    rows = torch.from_numpy(_seq(82, b"ACGTN", (4, 1 << 18))).to(gpu)
+    h, v = hash_chunk(rows, alphabet=DNA, k=21, seed=42, use64=True,
+                      noncanonical=False, preserve_case=False)
+    rng = np.random.default_rng(83)
+    sampled = np.unique(h[v].cpu().numpy().view(np.uint64)[::50])
+    db = np.unique(np.concatenate([
+        sampled,
+        rng.integers(0, 2**63, 20000, dtype=np.int64).astype(np.uint64)]))
+    before = sck.LAUNCHES["screen_table"]
+    counts, state = mesh.sharded_screen_counts(_mesh2(gpu), params, db,
+                                               [rows], 1000)
+    assert sck.LAUNCHES["screen_table"] == before + 2
+    _f, fold_rows, c0, finalize = so.make_screen_fold(params, db, 1000,
+                                                      "cuda:0")
+    c0, want = fold_rows(c0, sketch_ops.empty_state(1000, gpu), rows)
+    np.testing.assert_array_equal(counts, finalize(c0))
+    assert all(torch.equal(a, b) for a, b in zip(state, want))
+    assert (counts[np.searchsorted(db, sampled)] > 0).all()
+
+
+def test_two_ranks_screen_triangle_on_one_card(gpu, tmp_path, monkeypatch):
+    """Two gloo ranks on ``cuda:0`` (``tests/torch_multihost_worker.py``):
+    ``screen`` counts summed with rank 0 alone printing the one-process
+    report, and the streamed ``triangle``'s stripes (512 rows, alternate
+    ranks) concatenating to the one-process output."""
+    import json
+    import os
+    import pathlib
+    import socket
+    import subprocess
+    import sys
+
+    import mash_tpu_torch.commands.triangle as tri
+    from mash_tpu_torch.core.sketch import SketchRef
+    from mash_tpu_torch.io import capnp_msh
+
+    rng = np.random.default_rng(90)
+    n = 1100  # 3 stripes of 512
+    H, N = _sketches(rng, n, 64, 400)
+    refs = [SketchRef(name="s%04d" % i, comment="", length=10**6,
+                      hashes=H[i, : N[i]]) for i in range(n)]
+    refs_msh = str(tmp_path / "refs.msh")
+    capnp_msh.write_msh(refs_msh, default_nucleotide_params(21, 64, 42), refs)
+    reads = []
+    for i in range(4):
+        p = tmp_path / ("m%d.fa" % i)
+        p.write_bytes(b"".join(b">r%d_%d\n%s\n" % (i, j, _seq(
+            100 * i + j, b"ACGT", 2000).tobytes()) for j in range(20)))
+        reads.append(str(p))
+    db = str(tmp_path / "db.msh")
+    _cli(monkeypatch, "cpu", ["sketch", "-s", "200", "-o", db] + reads[:3])
+    monkeypatch.setattr(tri, "STREAM_MIN_SKETCHES", 0)
+    single = {"triangle": _cli(monkeypatch, "cuda", ["triangle", refs_msh]),
+              "screen": _cli(monkeypatch, "cuda", ["screen", db] + reads)}
+
+    outdir = tmp_path / "out"
+    outdir.mkdir()
+    cfg = tmp_path / "cfg.json"
+    root = pathlib.Path(__file__).resolve().parent
+    cfg.write_text(json.dumps(dict(
+        repo=str(root.parent), outdir=str(outdir), refs_msh=refs_msh,
+        screen_db=db, read_files=reads, only=["triangle", "screen"])))
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    procs = []
+    try:
+        for rank in range(2):
+            env = dict(os.environ, MASH_TPU_TORCH_DEVICE="cuda",
+                       MASH_TPU_TORCH_COORDINATOR="127.0.0.1:%d" % port,
+                       MASH_TPU_TORCH_NUM_PROCESSES="2",
+                       MASH_TPU_TORCH_PROCESS_ID=str(rank))
+            procs.append(subprocess.Popen(
+                [sys.executable, str(root / "torch_multihost_worker.py"),
+                 str(cfg)], env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True))
+        outs = [p.communicate(timeout=300) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for p, (_so, se) in zip(procs, outs):
+        assert p.returncode == 0, se[-3000:]
+
+    def rank_out(rank, name, ext=".out"):
+        return (outdir / ("rank%d_%s%s" % (rank, name, ext))).read_text()
+
+    assert rank_out(0, "screen") == single["screen"][0]
+    assert single["screen"][0].strip() and rank_out(1, "screen") == ""
+    lines = single["triangle"][0].splitlines(keepends=True)
+    # the header line, then row i on line i + 1: stripe 0 (rows 0-511)
+    # and stripe 2 (1024-1099) are rank 0's, stripe 1 (512-1023) rank 1's
+    want = ["".join(lines[:513]) + "".join(lines[1025:]),
+            "".join(lines[513:1025])]
+    assert [rank_out(r, "triangle") for r in (0, 1)] == want
+    assert "Max p-value" in rank_out(0, "triangle", ".err")
+    assert "Max p-value" not in rank_out(1, "triangle", ".err")
