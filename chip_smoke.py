@@ -87,7 +87,19 @@ Phases (any failure exits non-zero before the result lines):
    ``sharded_pairwise`` (64 x 64 and 1024 x 1024) and
    ``sharded_screen_counts`` (one ``screen`` batch against the ~10^7 DB
    in two ranges) over ``[cuda:0, cuda:0]`` must equal the one-device
-   route exactly.
+   route exactly;
+10. asynchronous dispatch: every main-path command of phases 4 to 9 must
+   print the stdout the synchronous port printed at seed 0, and the
+   reads' and records' ``.msh`` files must hold its bytes (rewritten
+   under that run's folder name); then ``fold_batches`` over the 64
+   genomes' ingest batches, ``triangle`` of the 4096 record sketches
+   (stripes at depth 3) and the exact route over the first 10^5 reads of
+   ``sketch -r -m 2`` each run as the package dispatches them beside a
+   run the harness serializes (``torch.cuda.synchronize()`` after every
+   batch and chunk, stripes at depth 1), with equal outputs, each wall
+   and device busy share printed; and each of the three paths' steady
+   state runs under ``torch.cuda.set_sync_debug_mode("error")``, where
+   any host read raises, waiting only through ``Event.synchronize``.
 
 Every kernel's launch count is reset just before each main-path command
 of phases 4 to 9 and read just after it; the kernels that command runs
@@ -377,7 +389,12 @@ def timed_cli(name, argv, env, profile, extra=None, stderr=None):
     if extra is not None:
         line.update(extra(wall))
     print(json.dumps(line), flush=True)
+    TIMED[name] = line
     return out, wall, line
+
+
+# every main-path command's JSON line, by name (phase 10 reads the hashes)
+TIMED: dict = {}
 
 
 def run_cli(argv, env=None, stderr=None) -> str:
@@ -1816,6 +1833,272 @@ def phase_mesh(rng, folder, paths):
           flush=True)
 
 
+# -- asynchronous dispatch (phase 10) ---------------------------------------
+
+# What the synchronous port printed at seed 0 on an NVIDIA H100 80GB HBM3
+# (700 W): each command's stdout hash, and the .msh files' hashes.  The
+# reads' sketches are named after their file, so their bytes hold that
+# run's temporary folder: phase 10 writes this run's sketches again under
+# that folder's name before it hashes them.
+SYNC_SEED = 0
+SYNC_FOLDER = "/tmp/mash_smoke_92rokmrf"
+SYNC_STDOUT_SHA256 = {
+    "sketch": "e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855",
+    "dist_4096": "f6dd7d4adf5a2c52c342f1946583dcabc95f3d3495fd775cd03917922da48fef",
+    "dist_1M": "4dabaa6b5f0d4fee0cca2bcc9fb9e6d8f29e65230dff6029733187f6a64fb053",
+    "screen": "b6fa4447dd0506a69d951fa228783533dcfbfb0c83bd69ea8d5d5b680b5a59b9",
+    "screen_w": "2eee79f6b26f9244d9cb9a774fe5fd16cb0264877917b4ee895c5879534e9acd",
+    "taxscreen": "3b799d2a4b3a94e6e6fea2d2db08600bfacdd6b2c2e5e98fe019dd552e9fb3a0",
+    "sketch_reads": "e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855",
+    "sketch_reads_m2": "e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855",
+    "sketch_i": "e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855",
+    "triangle_4096": "42747ecea97308491bac139d3b950046e609678d7f06745f417e2dbbc1fe32ff",
+    "triangle_edges": "5f8f1679ffa9b9251614cac5846488a77939ef9037efa7383a63d7051755a9f5",
+    "triangle_64": "26ad808b47db71c3085f6a82784d2e8b4a6de368c183d713d817c2fc6317427f",
+    "sketch_w": "e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855",
+    "find_msw": "5d961f52c56ba5b6d4ed457881d59f045f61e5fe02f0a4fedf6b8cddd92c87f8",
+    "find_fasta": "b95465e11b61ef003fbf6c7630f9a65fe02bd299adc61bc4b91a659cb0d34a0d",
+    "within_fasta": "b4abf3949b307b2c1f44ae2162fe67a89fe07edb0e494c6ccbca023c904d0582",
+    "within_plasmids": "a1d20eed3ff9b227837f369036dfbeade02f1a74ed24a06c20da635c91bc1304",
+    "dist_d": "c2cd0409cefcb22e6c8d3c5afb9ad2f530a56e9752ec9283e9bb2cecd04060a9",
+}
+SYNC_MSH_SHA256 = {
+    "reads.msh": "270f92e9e2286b4ed1fa0507bd62984ed8a5f74dcea9a5396afa8bdb0f0b8418",
+    "reads_m2.msh": "4dd925b37fb532f3e14453824190a57a1159bcef99eb22b921b836569b1a1f50",
+    "plasmids.msh": "f1c3c3c34864494e6d689981e9855f8a7ab974da6a6d637ac3a8b6fd492998ef",
+}
+N_ASYNC_READS = 100_000  # the exact route's comparison: sketch -r -m 2's head
+
+
+def msh_sha256_in(path: str, folder: str, as_folder: str) -> str:
+    """The hash of ``path``'s ``.msh`` bytes as they would be had the run's
+    ``folder`` been ``as_folder``: the sketches are read and written again
+    with the folder renamed in their names and comments (the writer gives
+    back the file's own bytes when nothing is renamed)."""
+    from mash_tpu_torch.io import capnp_msh
+
+    with open(path, "rb") as f:
+        raw = f.read()
+    msh = capnp_msh.read_msh(path)
+    again = path + ".again"
+    capnp_msh.write_msh(again, msh.params, msh.references)
+    with open(again, "rb") as f:
+        require(f.read() == raw, "%s does not survive a read and a write"
+                % os.path.basename(path))
+    for ref in msh.references:
+        ref.name = ref.name.replace(folder, as_folder)
+        ref.comment = ref.comment.replace(folder, as_folder)
+    capnp_msh.write_msh(again, msh.params, msh.references)
+    with open(again, "rb") as f:
+        digest = hashlib.sha256(f.read()).hexdigest()
+    os.remove(again)
+    return digest
+
+
+def pipelined_vs_serialized(name, run, serialized, extra=None):
+    """``run()`` as the package dispatches it beside ``serialized()`` (the
+    same work with the harness waiting for the card after every batch),
+    each twice in the order pipelined, serialized, serialized, pipelined,
+    then once each under ``torch.profiler`` for the device busy share.
+    The outputs must agree.  Prints one JSON line."""
+    import torch
+
+    from mash_tpu_torch.utils.profiling import pop_stage_totals
+
+    walls = {"pipelined": [], "serialized": []}
+    outs = {}
+    for mode in ("pipelined", "serialized", "serialized", "pipelined"):
+        fn = run if mode == "pipelined" else serialized
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs[mode] = fn()
+        torch.cuda.synchronize()
+        walls[mode].append(time.perf_counter() - t0)
+    require(outs["pipelined"] == outs["serialized"],
+            "%s: the pipelined run differs from the serialized one" % name)
+    line = {"async": name}
+    for mode, fn in (("pipelined", run), ("serialized", serialized)):
+        _, wall, busy, _ = device_profile(fn)
+        line.update({mode + "_wall_s": walls[mode],
+                     mode + "_profiled_wall_s": wall,
+                     mode + "_device_busy_s": busy,
+                     mode + "_device_busy_share": busy / wall})
+    line.update(extra or {})
+    pop_stage_totals()
+    print(json.dumps(line), flush=True)
+    return outs["pipelined"]
+
+
+@contextlib.contextmanager
+def no_host_sync(events):
+    """Every synchronizing CUDA call raises
+    (``torch.cuda.set_sync_debug_mode("error")``); the waits by design,
+    ``torch.cuda.Event.synchronize``, are counted in ``events``."""
+    import torch
+
+    sync = torch.cuda.Event.synchronize
+
+    def counted(self):
+        events.append(1)
+        return sync(self)
+
+    torch.cuda.synchronize()
+    torch.cuda.Event.synchronize = counted
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.Event.synchronize = sync
+
+
+def phase_async(folder, paths, plasmids_msh, seed):
+    """The outputs of phases 4-9 against the synchronous port's (seed 0),
+    then the three streaming paths pipelined beside a run the harness
+    serializes, and each path's steady state under the sync debug mode."""
+    import functools
+    import itertools
+
+    import numpy as np
+    import torch
+
+    from mash_tpu_torch.commands import triangle as triangle_cmd
+    from mash_tpu_torch.core import engine as engine_mod
+    from mash_tpu_torch.core.params import default_nucleotide_params
+    from mash_tpu_torch.io.fastx import read_fastx
+    from mash_tpu_torch.io.ingest import IngestPipeline
+    from mash_tpu_torch.ops import distance
+    from mash_tpu_torch.utils.profiling import pop_stage_totals
+
+    t_phase = time.perf_counter()
+    if seed == SYNC_SEED:
+        for name, want in SYNC_STDOUT_SHA256.items():
+            require(TIMED[name]["stdout_sha256"] == want,
+                    "%s prints another stdout than the synchronous port"
+                    % name)
+        for msh, want in SYNC_MSH_SHA256.items():
+            got = msh_sha256_in(os.path.join(folder, msh), folder,
+                                SYNC_FOLDER)
+            require(got == want, "%s differs from the synchronous port's"
+                    % msh)
+        print("async: the %d commands' stdout and the %d .msh files equal "
+              "the synchronous port's" % (len(SYNC_STDOUT_SHA256),
+                                          len(SYNC_MSH_SHA256)), flush=True)
+    else:
+        print("async: no synchronous outputs for seed %d; phase 10 holds "
+              "pipelined runs against serialized ones only" % seed,
+              flush=True)
+
+    # fold_batches over the 64 genomes' ingest batches (one state)
+    params = default_nucleotide_params(K, S, 42)
+    pipe = IngestPipeline(paths, K, engine_mod.DEFAULT_CHUNK, 32,
+                          pack_mode=1)
+    try:
+        batches = list(pipe.batches())
+    finally:
+        pipe.close()
+    eng = engine_mod.SketchEngine(params, device="cuda:0")
+
+    def fold(stream):
+        state = eng.fold_batches(eng.empty_state(), stream, packed=True)
+        ref = eng.state_to_ref(state)
+        return ref.hashes.tobytes() + ref.counts.tobytes()
+
+    def each_waited(items):
+        for item in items:
+            yield item
+            torch.cuda.synchronize()  # after the batch's dispatch
+
+    pipelined_vs_serialized(
+        "fold_batches", lambda: fold(iter(batches)),
+        lambda: fold(each_waited(batches)),
+        {"batches": len(batches), "rows": sum(b.shape[0] for b in batches),
+         "genomes": len(paths)})
+    events = []
+    with no_host_sync(events):
+        state = eng.fold_batches(eng.empty_state(), iter(batches),
+                                 packed=True)
+    require(len(events) <= 2 * len(batches), "fold_batches waited %d "
+            "times over %d batches" % (len(events), len(batches)))
+    eng.state_to_ref(state)
+    sync_checks = {"fold_batches": [len(batches), len(events)]}
+
+    # the stripes of triangle_4096: the command, and the stripes alone
+    serial = functools.partial(distance.stream_pair_stripes, depth=1)
+    real = triangle_cmd.stream_pair_stripes
+
+    def triangle(stripes):
+        triangle_cmd.stream_pair_stripes = stripes
+        try:
+            return run_cli(["triangle", plasmids_msh], GPU)
+        finally:
+            triangle_cmd.stream_pair_stripes = real
+
+    n = N_FAMILIES * FAMILY_SIZE
+    pipelined_vs_serialized("triangle_4096", lambda: triangle(real),
+                            lambda: triangle(serial),
+                            {"sketches": n, "depth": 3})
+    from mash_tpu_torch.io import capnp_msh
+
+    H, N = distance.pad_sketches(
+        [r.hashes for r in capnp_msh.read_msh(plasmids_msh).references], S)
+    stripes = distance.stream_pair_stripes(H, N, H, N, S, "cuda",
+                                           triangle=True, depth=3)
+    seen = [next(stripes)]  # the set-up: one upload and the ranks
+    events = []
+    with no_host_sync(events):
+        seen += list(stripes)
+    tiles = sum(-(-st.shape[1] // 2048) for _, st in seen[1:])
+    require(len(events) <= tiles, "the stripes waited %d times for %d "
+            "tiles" % (len(events), tiles))
+    sync_checks["stripes"] = [len(seen) - 1, len(events)]
+
+    # the exact route over the first 10^5 reads of sketch -r -m 2
+    reads_path = os.path.join(folder, "reads_R1.fq")
+    records = list(itertools.islice(read_fastx(reads_path), N_ASYNC_READS))
+    exact_params = default_nucleotide_params(K, S, 42)
+    exact_params.reads = True
+    exact_params.min_cov = 2
+    exact = engine_mod.SketchEngine(exact_params, device="cuda:0")
+    dispatch = engine_mod.SketchEngine.hash_bytes_async
+
+    def exact_route():
+        ref, _, count, _ = engine_mod.sketch_records_exact(
+            exact, records, reads_path)
+        return (ref.hashes.tobytes(), ref.counts.tobytes(), ref.comment,
+                ref.length, count)
+
+    def each_waited_chunk(self, data):
+        out = dispatch(self, data)
+        torch.cuda.synchronize()
+        return out
+
+    def exact_serialized():
+        exact.hash_bytes_async = functools.partial(each_waited_chunk, exact)
+        try:
+            return exact_route()
+        finally:
+            del exact.hash_bytes_async
+
+    bases = sum(len(r.seq) for r in records)
+    chunks = -(-bases // engine_mod.DEFAULT_CHUNK)
+    pipelined_vs_serialized("exact_route", exact_route, exact_serialized,
+                            {"reads": len(records), "bases": bases,
+                             "chunks_about": chunks})
+    events = []
+    with no_host_sync(events):
+        engine_mod.sketch_records_exact(exact, records, reads_path)
+    require(len(events) <= 3 * (chunks + 1), "the exact route waited %d "
+            "times over about %d chunks" % (len(events), chunks))
+    sync_checks["exact_route"] = [chunks, len(events)]
+    pop_stage_totals()  # the sync checks' stages: no command's
+    print(json.dumps({"sync_debug": "error", "paths": {
+        k: {"batches": b, "event_waits": e}
+        for k, (b, e) in sync_checks.items()}}), flush=True)
+    print("phase async: ok in %.1f s" % (time.perf_counter() - t_phase),
+          flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1873,6 +2156,7 @@ def main(argv=None) -> int:
                                    cmd_launches, args.profile)
         phase_ranks(folder, paths, all_msh, plasmids_msh, find_head)
         phase_mesh(rng, folder, paths)
+        phase_async(folder, paths, plasmids_msh, args.seed)
     # each kernel's count from the run of the path that calls it
     for name in ("screen_table", "screen_count"):
         launches[name] = screen_launches[name]

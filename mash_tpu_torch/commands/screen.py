@@ -35,6 +35,7 @@ from mash_tpu_torch.ops import screen_ops, sketch_ops
 from mash_tpu_torch.ops.kmers import unpack_chunks
 from mash_tpu_torch.parallel import multihost as mh
 from mash_tpu_torch.utils import resolve_device, stage
+from mash_tpu_torch.utils.transfer import Uploader
 
 # The chunk sizes ``mash_tpu`` pads to (tiny inputs / full chunks), kept
 # so both packages hash chunks of the same shapes.
@@ -70,10 +71,6 @@ def _pad_to_bucket(chunk: bytes, chunk_len: int) -> bytes:
     return chunk + b"\x00" * (m - len(chunk))
 
 
-def _upload(raw: bytes, device) -> torch.Tensor:
-    return torch.frombuffer(bytearray(raw), dtype=torch.uint8).to(device)
-
-
 def stream_fold(fold, counts, state, records, k, trans, device,
                 chunk_len=1 << 20):
     """Drive a screen fold over packed record chunks.
@@ -88,8 +85,15 @@ def stream_fold(fold, counts, state, records, k, trans, device,
     counts every record (``CommandTaxScreen.cpp:331``) and only errors
     when none exist at all — a pool of records all shorter than k gets
     the no-valid-k-mers WARNING and a report, not an error.
+
+    Chunks go up through pinned memory (``utils.transfer.Uploader``),
+    so the host packs the next chunk while the card folds this one.
     """
     seen = {"any": False}
+    uploader = Uploader(device)
+
+    def upload(raw: bytes) -> torch.Tensor:
+        return uploader.upload(np.frombuffer(raw, dtype=np.uint8))
 
     def _tracked(rs):
         for rec in rs:
@@ -106,10 +110,10 @@ def stream_fold(fold, counts, state, records, k, trans, device,
                 if len(frame) < k:
                     continue
                 padded = _pad_to_bucket(frame.tobytes(), chunk_len)
-                counts, state = fold(counts, state, _upload(padded, device))
+                counts, state = fold(counts, state, upload(padded))
         else:
             padded = _pad_to_bucket(raw, chunk_len)
-            counts, state = fold(counts, state, _upload(padded, device))
+            counts, state = fold(counts, state, upload(padded))
     return counts, state, seen["any"]
 
 
@@ -121,7 +125,8 @@ def stream_fold_fast(fold_rows, counts, state, files, k, params, device,
     exactly once, as the record path's packing does, so counts and
     cardinality are unchanged.  A batch's trailing all-zero rows (the
     pipeline's padding of the last batch) hold no valid window and are
-    cut before the upload.
+    cut before the upload, which goes through pinned memory
+    (``utils.transfer.Uploader``) without waiting for the card.
     """
     pack = 0
     if params.alphabet_string() == "ACGT":
@@ -129,12 +134,13 @@ def stream_fold_fast(fold_rows, counts, state, files, k, params, device,
     pipe = IngestPipeline(
         files, k, chunk_len, _fast_batch_rows(device), pack_mode=pack
     )
+    uploader = Uploader(device)
     try:
         for batch in pipe.batches():
             rows = batch.shape[0]
             while rows > 1 and not batch[rows - 1].any():
                 rows -= 1
-            dev = torch.from_numpy(batch[:rows]).to(device)
+            dev = uploader.upload(batch[:rows])
             if pack:
                 dev = unpack_chunks(dev, chunk_len)
             counts, state = fold_rows(counts, state, dev)

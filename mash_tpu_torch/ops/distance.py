@@ -233,6 +233,7 @@ def stream_pair_stripes(
     tile_r: int | None = None,
     triangle: bool = False,
     stripe_filter=None,
+    depth: int | None = None,
 ):
     """Yield ``(i0, stripe)`` row stripes of packed ``common | denom<<16``.
 
@@ -249,8 +250,16 @@ def stream_pair_stripes(
     :func:`pairwise_common_denom`, for either width.  When every query
     sketch is full (and, off the triangle, every reference sketch), every
     real cell's denominator is ``cap``, so only ``common`` leaves the
-    device, as uint16.  Each stripe is computed and read back before the
-    next starts.  Requires ``cap < 65536``.
+    device, as uint16.  Requires ``cap < 65536``.
+
+    Up to ``depth`` stripes are in flight, as in ``mash_tpu``: a stripe's
+    tiles are launched and their copies to pinned host memory started
+    (``utils.transfer.Readback``) before the oldest stripe in flight is
+    read, so the card computes later stripes while the host formats
+    earlier ones.  ``depth`` defaults to 3 on CUDA and 1 (each stripe
+    read before the next is launched) on the CPU.  The pinned memory in
+    flight is ``depth x row_block x cols x 4`` bytes at most: 25 MiB at
+    4096 sketches, 0.6 GiB at 10^5.
 
     With ``stripe_filter(i0, row_block)`` only the stripes it accepts are
     computed and yielded (``parallel.multihost.owns_stripe``: each process
@@ -258,12 +267,16 @@ def stream_pair_stripes(
     process's device count, so that stripe boundaries agree in every
     process.
     """
+    from collections import deque
+
     from mash_tpu_torch.parallel import multihost as mh
+    from mash_tpu_torch.utils.transfer import Readback
 
     if cap >= 65536:
         raise ValueError("packed stripes need cap < 65536")
     device = torch.device(device)
     big = device.type == "cuda"
+    depth = depth or (3 if big else 1)
     row_block = row_block or (512 if big else 32)
     dev_mult = math.lcm(*(int(c) for c in mh.local_device_counts(device)))
     row_block = dev_mult * -(-row_block // dev_mult)
@@ -296,25 +309,39 @@ def stream_pair_stripes(
         c, d = pairs(Hq[i0 : i0 + row_block], Nq[i0 : i0 + row_block],
                      Hr[ri : ri + tile_r], Nr[ri : ri + tile_r], cap=cap)
         if common_only:
-            return c.to(torch.int16).cpu().numpy().view(np.uint16)
+            return c.to(torch.int16)
         packed = c.long() | (d.long() << 16)
-        return packed.to(torch.int32).cpu().numpy().view(np.uint32)
+        return packed.to(torch.int32)
 
+    def dispatch(i0):
+        """Launch a stripe's tiles and start their copies to the host."""
+        rows = min(row_block, nq - i0)
+        cols = (i0 + rows - 1) if triangle else nr
+        with stage("distance:stripe_dispatch"):
+            tiles = [Readback(tile(i0, ri)) for ri in range(0, cols, tile_r)]
+        return i0, rows, cols, tiles
+
+    def materialize(item):
+        """Wait for a stripe's copies and cut it to its real cells."""
+        i0, rows, cols, tiles = item
+        if cols <= 0:
+            return i0, np.zeros((rows, 0), dtype=np.uint32)
+        with stage("distance:stripe"):
+            stripe = np.concatenate([t.numpy() for t in tiles], axis=1)
+        if common_only:
+            stripe = stripe[:rows, :cols].view(np.uint16).astype(np.uint32)
+            return i0, stripe | (np.uint32(cap) << 16)
+        return i0, stripe[:rows, :cols].view(np.uint32)
+
+    in_flight: deque = deque()
     for i0 in range(0, nq, row_block):
         if stripe_filter is not None and not stripe_filter(i0, row_block):
             continue
-        rows = min(row_block, nq - i0)
-        cols = (i0 + rows - 1) if triangle else nr
-        if cols <= 0:
-            yield i0, np.zeros((rows, 0), dtype=np.uint32)
-            continue
-        with stage("distance:stripe"):
-            stripe = np.concatenate(
-                [tile(i0, ri) for ri in range(0, cols, tile_r)], axis=1
-            )[:rows, :cols]
-        if common_only:
-            stripe = stripe.astype(np.uint32) | (np.uint32(cap) << 16)
-        yield i0, stripe
+        in_flight.append(dispatch(i0))
+        if len(in_flight) >= depth:
+            yield materialize(in_flight.popleft())
+    while in_flight:
+        yield materialize(in_flight.popleft())
 
 
 def common_denom_tiled(

@@ -25,6 +25,8 @@ Chunking contract (host side, see ``mash_tpu_torch.core.engine``):
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -80,6 +82,26 @@ def complement_lut(alphabet: tuple) -> np.ndarray:
     return lut
 
 
+@functools.lru_cache(maxsize=None)
+def device_table(kind: str, alphabet: tuple, device: torch.device):
+    """A host table as a tensor on ``device``, copied there once.
+
+    ``kind`` is ``"alphabet"`` (:func:`alphabet_lut`, as bool),
+    ``"complement"`` (:func:`complement_lut`) or ``"bases"`` (the 2-bit
+    codes' bytes A, C, T, G; ``alphabet`` unused).  A copy from pageable
+    memory makes the host wait for the card, so the streaming paths keep
+    these tables on the device instead of uploading them every batch.
+    """
+    if kind == "alphabet":
+        return torch.from_numpy(alphabet_lut(alphabet)).to(device).bool()
+    if kind == "complement":
+        return torch.from_numpy(complement_lut(alphabet)).to(device)
+    if kind == "bases":
+        return torch.tensor([65, 67, 84, 71], dtype=torch.uint8,
+                            device=device)
+    raise ValueError("unknown table %r" % kind)
+
+
 def complement_lut_az() -> np.ndarray:
     """256-entry byte -> complement table over uppercase 'A'..'Z' (0 for
     every other byte), whatever the alphabet: the host-side table of
@@ -110,7 +132,7 @@ def unpack_chunks(packed: torch.Tensor, chunk_len: int) -> torch.Tensor:
     sh8 = torch.arange(8, dtype=torch.uint8, device=dev)[None, None]
     valid = ((pm[:, :, None] >> sh8) & 1).reshape(B, L)
     # code -> byte: 0->A 1->C 2->T 3->G (inverse of (byte >> 1) & 3)
-    table = torch.tensor([65, 67, 84, 71], dtype=torch.uint8, device=dev)
+    table = device_table("bases", (), dev)
     byte = table[codes.long()]
     return torch.where(valid == 1, byte, torch.zeros_like(byte))
 
@@ -231,7 +253,7 @@ def hash_chunk(
     seq = uppercase(seq, preserve_case)
     dev = seq.device
     idx = seq.long()
-    ok = torch.from_numpy(alphabet_lut(alphabet)).to(dev).bool()[idx]
+    ok = device_table("alphabet", tuple(alphabet), dev)[idx]
     valid = window_valid(ok, k)
 
     def window_bytes_fwd(j):
@@ -240,7 +262,7 @@ def hash_chunk(
     if noncanonical:
         window_bytes_rev = None
     else:
-        comp = torch.from_numpy(complement_lut(alphabet)).to(dev)[idx]
+        comp = device_table("complement", tuple(alphabet), dev)[idx]
 
         def window_bytes_rev(j):
             # rc k-mer byte j = complement(seq[i + k-1-j])
@@ -272,8 +294,8 @@ def hash_from_byte_fns(
         # (``Sketch.cpp:569-571``).
         f0 = fwd(0)
         cmp = torch.zeros(f0.shape, dtype=torch.int8, device=f0.device)
-        minus = torch.tensor(-1, dtype=torch.int8, device=f0.device)
-        plus = torch.tensor(1, dtype=torch.int8, device=f0.device)
+        minus = torch.full((), -1, dtype=torch.int8, device=f0.device)
+        plus = torch.full((), 1, dtype=torch.int8, device=f0.device)
         for j in reversed(range(k)):
             f = fwd(j)
             r = rev(j)

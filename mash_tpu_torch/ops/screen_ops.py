@@ -162,23 +162,33 @@ def make_screen_fold(params, db_hashes: np.ndarray, s: int, device=None):
     The DB is range-sharded over the devices ``device`` spans
     (``parallel.mesh.local_mesh``), one :class:`ScreenCounter` a device
     (``parallel.mesh.ShardedScreenCounter``): one device holds the
-    whole DB.
+    whole DB.  Nothing reads the device before ``finalize``: the
+    cardinality fold's certificate is settled one batch behind
+    (``sketch_ops.fold_batch``), so ``state`` may be a
+    ``sketch_ops.PendingState``, which settles when it is read.
     """
-    from mash_tpu_torch.parallel.mesh import ShardedScreenCounter, local_mesh
+    from mash_tpu_torch.ops.kmers import hash_chunk
+    from mash_tpu_torch.parallel.mesh import (
+        ShardedScreenCounter,
+        _hash_kw,
+        local_mesh,
+    )
 
     dev = resolve_device(device)
     counter = ShardedScreenCounter(local_mesh(dev), db_hashes)
+    kw = _hash_kw(params)
+
+    def recompute(rows):
+        return sketch_ops.sketch_chunk(*hash_chunk(rows, **kw), s=s)
 
     def fold_rows(counts, state, rows):
         with stage("screen:fold_batch"):
             h, v = counter.add_rows(rows, params)
-            sh, sc = sketch_ops.sketch_chunk_batch(h, v, s=s,
-                                                   use64=params.use64)
-            state = sketch_ops.tree_merge(
-                torch.cat([state[0][None], sh]),
-                torch.cat([state[1][None], sc]),
-                s=s,
-            )
+            sh, sc, bad = sketch_ops.sketch_chunk_batch_deferred(
+                h, v, s=s, use64=params.use64)
+            pending = ([] if bad is None
+                       else [sketch_ops.Uncertified(rows, bad, recompute)])
+            state = sketch_ops.fold_batch(state, sh, sc, pending, s=s)
         return counts, state
 
     def fold(counts, state, chunk):

@@ -4,10 +4,12 @@ The counterpart of ``mash_tpu.ops.pallas_sketch``.  The kernel
 ``csrc/sketch_select.cu`` hashes every window of a chunk batch and, for
 each C-window subrow, returns its m smallest hashes, the (m+1)-th as a
 boundary, and its valid-window count, so the full hash array never
-reaches device memory.  :func:`sketch_chunks_fused` folds those
+reaches device memory.  :func:`sketch_chunks_deferred` folds those
 candidates to bottom-s and checks an exactness certificate on the full
-64-bit boundary for each row; a row that fails it is recomputed on the
-plain path, on the same device.
+64-bit boundary for each row, on the device; a row that fails it is
+recomputed on the plain path, on the same device, once its mask has
+reached the host (at once in :func:`sketch_chunks_fused`, a batch later
+on the streaming paths).
 
 :func:`sketch_select` launches the kernel for a CUDA tensor and runs its
 plain version, :func:`sketch_select_plain`, for a CPU tensor, so the CPU
@@ -24,9 +26,11 @@ from mash_tpu_torch.ops import cuda_build
 from mash_tpu_torch.ops.kmers import alphabet_lut, complement_lut, hash_chunk
 from mash_tpu_torch.ops.sketch_ops import (
     EMPTY,
+    Uncertified,
     _fold_sorted,
     biased,
     candidate_budget,
+    empty_rows,
     sketch_chunk,
     sketch_chunk_batch,
     sort_unsigned,
@@ -153,7 +157,7 @@ def sketch_chunks_plain(chunks, *, alphabet, k, seed, use64, noncanonical,
     return sketch_chunk_batch(h, v, s=s, use64=use64)
 
 
-def sketch_chunks_fused(
+def sketch_chunks_deferred(
     chunks: torch.Tensor,
     *,
     alphabet: tuple,
@@ -164,12 +168,17 @@ def sketch_chunks_fused(
     preserve_case: bool,
     s: int,
 ):
-    """Bytes -> bottom-s states ``(H [B, s], C [B, s])`` via
-    :func:`sketch_select`.
+    """Bytes -> bottom-s states via :func:`sketch_select`, with the
+    certificate settled later: the counterpart of ``mash_tpu``'s
+    ``lax.cond`` on the device (``mash_tpu/ops/pallas_sketch.py:553``).
 
-    Semantically identical to ``hash_chunk`` + ``sketch_chunk``: the
-    candidates are folded, then a per-row certificate proves them
-    complete, else that row is recomputed with a full sort.
+    Returns ``(H [B, s], C [B, s], pending)`` without reading the
+    device.  Rows without the certificate are EMPTY / 0 in ``H, C``;
+    ``pending`` (a :class:`~mash_tpu_torch.ops.sketch_ops.Uncertified`)
+    recomputes them on the plain path once their mask has reached the
+    host, and is None when the plain path ran for the whole batch.
+    Merged in at any later point, those rows give the exact state (see
+    ``sketch_ops``: the merge is associative and commutative).
     """
     B, L = chunks.shape
     n = L - k + 1
@@ -181,10 +190,10 @@ def sketch_chunks_fused(
         return sketch_chunk(h, v, s=s)
 
     if n <= 8 * C or s * 8 > n or k > _MAX_K:
-        return plain(chunks)
+        return (*plain(chunks), None)
     m = candidate_budget(s, C, n)
     if m >= C:  # the kernel keeps at most C - 1 candidates per subrow
-        return plain(chunks)
+        return (*plain(chunks), None)
 
     cand, boundary, vcount = sketch_select(
         chunks, alphabet=alphabet, k=k, seed=seed, use64=use64,
@@ -199,18 +208,47 @@ def sketch_chunks_fused(
     # Certificate: a hash not extracted from its subrow is >= that
     # subrow's boundary, so X (the s-th kept value) strictly below every
     # boundary proves every occurrence <= X was captured; equal valid
-    # counts prove the all-captured case.
+    # counts prove the all-captured case.  A file's short tail row (fewer
+    # valid windows than s, more than m in a subrow) is the usual row
+    # without it; the rest of its batch stays exact.
     ndist = (Cf > 0).sum(dim=1)
     minb = biased(boundary.view(B, R)).min(dim=1).values
     covered = (ndist >= s) & (biased(Hf[:, s - 1]) < minb)
     all_in = vcount.view(B, R).sum(dim=1) == cand_v.sum(dim=1)
-    bad = (~(covered | all_in)).nonzero().squeeze(1)
-    if bad.numel():
-        # Only the rows without a certificate are recomputed.  A file's
-        # short tail row (fewer valid windows than s, more than m in a
-        # subrow) is the usual one; the rest of its batch stays exact.
-        Hf[bad], Cf[bad] = plain(chunks[bad])
+    bad = ~(covered | all_in)
+    Hf, Cf = empty_rows(Hf, Cf, bad)
+    return Hf, Cf, Uncertified(chunks, bad, plain)
+
+
+def sketch_chunks_fused(chunks: torch.Tensor, **kw):
+    """Bytes -> exact bottom-s states ``(H [B, s], C [B, s])`` via
+    :func:`sketch_select`.
+
+    Semantically identical to ``hash_chunk`` + ``sketch_chunk``: the
+    candidates are folded, then a per-row certificate proves them
+    complete, else that row is recomputed with a full sort.  Reads the
+    certificate's mask back before it returns
+    (:func:`sketch_chunks_deferred` does not).
+    """
+    Hf, Cf, pending = sketch_chunks_deferred(chunks, **kw)
+    got = pending.states() if pending is not None else None
+    if got is not None:
+        sel, h, c = got
+        Hf[sel], Cf[sel] = h, c
     return Hf, Cf
+
+
+def sketch_chunks_async(chunks: torch.Tensor, **kw):
+    """Device-dispatched bytes -> ``(H, C, pending)`` without a host read.
+
+    CUDA: :func:`sketch_chunks_deferred`.  CPU: the plain ``hash_chunk``
+    + ``sketch_chunk_batch``, with ``pending`` None.
+    """
+    if chunks.device.type == "cuda":
+        return sketch_chunks_deferred(chunks, **kw)
+    if chunks.device.type == "cpu":
+        return (*sketch_chunks_plain(chunks, **kw), None)
+    raise ValueError("unsupported device %s" % chunks.device)
 
 
 def sketch_chunks_auto(chunks: torch.Tensor, **kw):

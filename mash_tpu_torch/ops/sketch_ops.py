@@ -20,6 +20,7 @@ by ``counts == 0``.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 EMPTY = -1  # 2^64-1 as an int64 bit pattern
@@ -118,10 +119,38 @@ def sketch_chunk_batch(
 
     Returns ``(H [B, s], C [B, s])`` stacked states.
     """
+    Hf, Cf, ok = _topk_fold(hashes, valid, s, use64)
+    if ok is None or bool(ok.all()):
+        return Hf, Cf
+    return sketch_chunk(hashes, valid, s=s)
+
+
+def sketch_chunk_batch_deferred(
+    hashes: torch.Tensor, valid: torch.Tensor, *, s: int, use64: bool = True
+):
+    """:func:`sketch_chunk_batch` without its host read.
+
+    Returns ``(H [B, s], C [B, s], bad)``: ``bad`` is the device mask of
+    the rows without the certificate, whose states are left empty here
+    (:func:`empty_rows`), or None when every row is exact by
+    construction.  The caller recomputes those rows later
+    (:class:`Uncertified`).
+    """
+    Hf, Cf, ok = _topk_fold(hashes, valid, s, use64)
+    if ok is None:
+        return Hf, Cf, None
+    Hf, Cf = empty_rows(Hf, Cf, ~ok)
+    return Hf, Cf, ~ok
+
+
+def _topk_fold(hashes, valid, s, use64):
+    """The top-k fold of :func:`sketch_chunk_batch` and each row's
+    certificate: ``(H, C, ok)``, ``ok`` None when the rows are short
+    enough for the full sort."""
     B, n = hashes.shape
     C = 2048  # subrow width
     if n <= 16 * C or s * 8 > n:
-        return sketch_chunk(hashes, valid, s=s)
+        return (*sketch_chunk(hashes, valid, s=s), None)
 
     m = min(candidate_budget(s, C, n), C)
     R = (n + C - 1) // C
@@ -161,9 +190,7 @@ def sketch_chunk_batch(
     win_cnt = (cand_v & (biased(cand_h) <= x)).sum(dim=1)
     covered = (ndist >= s) & (win_cnt == full_cnt)
     all_valid_in = cand_v.sum(dim=1) == valid.sum(dim=1)
-    if bool((covered | all_valid_in).all()):
-        return Hf, Cf
-    return sketch_chunk(hashes, valid, s=s)
+    return Hf, Cf, covered | all_valid_in
 
 
 def _shr32(x: torch.Tensor) -> torch.Tensor:
@@ -183,6 +210,129 @@ def tree_merge(states_h: torch.Tensor, states_c: torch.Tensor, *, s: int):
     """Merge ``[B, s]`` stacked states into one state (one concat+sort)."""
     h, c = sort_unsigned(states_h.reshape(-1), states_c.reshape(-1))
     return _fold_sorted(h, c, s)
+
+
+def empty_rows(H: torch.Tensor, C: torch.Tensor, rows: torch.Tensor):
+    """``[B, s]`` states with the rows of the bool mask ``rows`` emptied
+    (EMPTY / 0), on the device: they then add nothing to a merge."""
+    keep = ~rows[:, None]
+    return (torch.where(keep, H, torch.full_like(H, EMPTY)),
+            torch.where(keep, C, torch.zeros_like(C)))
+
+
+# -- the deferred certificate ----------------------------------------------
+#
+# A batch's rows whose certificate fails on the device are emptied there
+# (``empty_rows``) and folded in as they are; their exact states are
+# merged in later, once the mask of those rows has reached the host.
+# This is exact because the bottom-s merge with summed counts is
+# associative and commutative, so the order of the merges does not
+# matter, and because a hash the state drops can never return: it was
+# dropped because s smaller distinct hashes were in the state, and a
+# state only gains hashes.  Each row's own state is its exact bottom s,
+# and a hash of the final bottom s has fewer than s smaller ones in any
+# row, so every row that holds it counted it.
+
+
+class Uncertified:
+    """Rows of one batch that lack the certificate, to be recomputed.
+
+    ``rows`` is the device batch (what the kernel saw), ``bad`` its
+    device bool mask of rows to recompute, ``recompute(rows)`` the plain
+    path to their ``[b, s]`` states.  The mask's copy to the host starts
+    here (:class:`~mash_tpu_torch.utils.transfer.Readback`), so it is
+    queued before any later batch's work.
+    """
+
+    def __init__(self, rows: torch.Tensor, bad: torch.Tensor, recompute):
+        from mash_tpu_torch.utils.transfer import Readback
+
+        self.rows = rows
+        self.mask = Readback(bad)
+        self.recompute = recompute
+
+    def states(self):
+        """``(index, H [b, s], C [b, s])`` of the rows without the
+        certificate, on their device, ``index`` their device positions in
+        the batch; None when every row has it.  Waits for the mask's copy
+        alone."""
+        idx = np.flatnonzero(self.mask.numpy())
+        if not idx.size:
+            return None
+        sel = torch.from_numpy(idx).to(self.rows.device, non_blocking=True)
+        return (sel, *self.recompute(self.rows.index_select(0, sel)))
+
+
+def merge_uncertified(state, pending):
+    """``state`` with the exact states of every :class:`Uncertified` in
+    ``pending`` merged in."""
+    h, c = state
+    for p in pending:
+        got = p.states()
+        if got is None:
+            continue
+        _, ph, pc = got
+        h, c = tree_merge(
+            torch.cat([h[None], ph.to(h.device, non_blocking=True)]),
+            torch.cat([c[None], pc.to(c.device, non_blocking=True)]),
+            s=h.shape[-1],
+        )
+    return h, c
+
+
+class PendingState:
+    """A bottom-s state ``(H, C)`` whose last batch still has rows that
+    lack the certificate (:class:`Uncertified`).
+
+    Reading it (``state[0]``, ``h, c = state``) settles it first: it
+    waits for those rows' masks, merges their exact states in and keeps
+    the result, so no reader sees an unsettled state.  :func:`fold_batch`
+    alone reads ``raw`` and ``pending``, to settle them one batch later.
+    """
+
+    def __init__(self, h: torch.Tensor, c: torch.Tensor, pending):
+        self.raw = (h, c)
+        self.pending = list(pending)
+        self._settled = None
+
+    def settled(self) -> bool:
+        return self._settled is not None
+
+    def settle(self):
+        if self._settled is None:
+            self._settled = merge_uncertified(self.raw, self.pending)
+        return self._settled
+
+    def __getitem__(self, i):
+        return self.settle()[i]
+
+    def __iter__(self):
+        return iter(self.settle())
+
+    def __len__(self) -> int:
+        return 2
+
+
+def fold_batch(state, sh: torch.Tensor, sc: torch.Tensor, pending=(), *,
+               s: int):
+    """Fold a batch's ``[B, s]`` row states into ``state``.
+
+    When ``state`` is a :class:`PendingState`, its last batch is settled
+    only after this batch's merge has been queued, so the card has this
+    batch to run while the host waits for the earlier mask.  ``pending``
+    holds this batch's :class:`Uncertified` rows (None entries are
+    skipped); the result is a :class:`PendingState` when any remain,
+    else a plain ``(H, C)``.  No step reads the device.
+    """
+    if isinstance(state, PendingState) and not state.settled():
+        base, prev = state.raw, state.pending
+    else:
+        base, prev = tuple(state), ()
+    new = tree_merge(torch.cat([base[0][None], sh]),
+                     torch.cat([base[1][None], sc]), s=s)
+    new = merge_uncertified(new, prev)
+    pending = [p for p in pending if p is not None]
+    return PendingState(*new, pending) if pending else new
 
 
 def state_stats(state):

@@ -6,8 +6,9 @@ share, the host launches them in turn (CUDA launches return at once, so
 the devices overlap), and the small results meet on ``devices[0]``:
 
 - **Sketching** (data parallel over chunk rows): every device hashes and
-  bottom-s-reduces its rows (K1 and the certificate-checked fold); the
-  per-device states (s * 16 bytes) are merged with the associative fold.
+  bottom-s-reduces its rows (K1 and the certificate-checked fold, its
+  mask read only after every device has its work); the per-device states
+  (s * 16 bytes) are merged with the associative fold.
 - **Pairwise distance** (over query rows): the references are copied to
   every device, each device computes its row block
   (``pairwise_common_denom_auto``: K2, or rank keys and K3), and the row
@@ -72,32 +73,52 @@ def _row_shards(n_rows: int, devices) -> int:
     return n_rows // n
 
 
-def sharded_sketch_chunks(devices, params, chunks: torch.Tensor, s: int,
-                          chunk_len: Optional[int] = None):
-    """Sketch a ``[B, L]`` uint8 chunk batch across ``devices``.
+def sharded_sketch_chunks_async(devices, params, chunks: torch.Tensor,
+                                s: int, chunk_len: Optional[int] = None):
+    """Sketch a ``[B, L]`` uint8 chunk batch across ``devices`` without
+    reading any device.
 
     ``B`` must divide by the device count.  With ``chunk_len`` set, rows
     are packed 2-bit + mask ingest rows, reconstructed on each device.
-    Returns the merged ``(H [s], C [s])`` state on ``devices[0]``.
+    Each device runs the deferred certificate
+    (``ops.sketch_kernel.sketch_chunks_async``), and the states move to
+    ``devices[0]`` without waiting, so every device has its work queued
+    before the host waits on any (as one SPMD program runs in
+    ``mash_tpu``).  Returns ``((H [s], C [s]), pending)``: the merged
+    state on ``devices[0]`` without the rows that lack the certificate,
+    and their :class:`~mash_tpu_torch.ops.sketch_ops.Uncertified`, one a
+    device that has any (``sketch_ops.merge_uncertified`` settles them).
     """
     from mash_tpu_torch.ops.kmers import unpack_chunks
-    from mash_tpu_torch.ops.sketch_kernel import sketch_chunks_auto
+    from mash_tpu_torch.ops.sketch_kernel import sketch_chunks_async
 
     per = _row_shards(chunks.shape[0], devices)
     kw = _hash_kw(params)
-    states = []
+    states, pending = [], []
     for i, dev in enumerate(devices):
-        rows = chunks[i * per : (i + 1) * per].to(dev)
+        rows = chunks[i * per : (i + 1) * per].to(dev, non_blocking=True)
         if chunk_len is not None:
             rows = unpack_chunks(rows, chunk_len)
-        sh, sc = sketch_chunks_auto(rows, **kw, s=s)
+        sh, sc, p = sketch_chunks_async(rows, **kw, s=s)
         states.append(sketch_ops.tree_merge(sh, sc, s=s))
+        if p is not None:
+            pending.append(p)
     d0 = devices[0]
-    return sketch_ops.tree_merge(
-        torch.stack([h.to(d0) for h, _ in states]),
-        torch.stack([c.to(d0) for _, c in states]),
+    merged = sketch_ops.tree_merge(
+        torch.stack([h.to(d0, non_blocking=True) for h, _ in states]),
+        torch.stack([c.to(d0, non_blocking=True) for _, c in states]),
         s=s,
     )
+    return merged, pending
+
+
+def sharded_sketch_chunks(devices, params, chunks: torch.Tensor, s: int,
+                          chunk_len: Optional[int] = None):
+    """:func:`sharded_sketch_chunks_async`, settled: the exact merged
+    ``(H [s], C [s])`` state on ``devices[0]``."""
+    state, pending = sharded_sketch_chunks_async(devices, params, chunks, s,
+                                                 chunk_len=chunk_len)
+    return sketch_ops.merge_uncertified(state, pending)
 
 
 def sharded_pairwise(devices, qry_h, qry_n, ref_h, ref_n, cap: int,

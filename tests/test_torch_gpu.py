@@ -875,3 +875,266 @@ def test_two_ranks_screen_triangle_on_one_card(gpu, tmp_path, monkeypatch):
     assert [rank_out(r, "triangle") for r in (0, 1)] == want
     assert "Max p-value" in rank_out(0, "triangle", ".err")
     assert "Max p-value" not in rank_out(1, "triangle", ".err")
+
+
+# -- asynchronous dispatch ---------------------------------------------------
+
+def _failing_rows(seed, n_rows, width=20 * 1024):
+    """Random DNA rows (mixed case); row 1 a short tail (one subrow of
+    valid windows) and row 3 a repeated motif, which fail the certificate
+    at s = 1300 (m = 1024)."""
+    rows = _seq(seed, b"ACGTacgt", (n_rows, width))
+    rows[1, 2048 + 20 :] = 0
+    rows[3] = np.resize(_seq(seed + 1, b"ACGT", 37), width)
+    return np.ascontiguousarray(rows)
+
+
+def _engine(device, s=1300, chunk_len=None):
+    from mash_tpu_torch.core.engine import SketchEngine
+
+    params = default_nucleotide_params(21, s, 42)
+    if chunk_len is None:
+        return SketchEngine(params, device=device)
+    return SketchEngine(params, device=device, chunk_len=chunk_len)
+
+
+def test_uploader_ring_reuse_under_load(gpu):
+    """Uploads through a two-slot ring behind slow kernels: every slot is
+    rewritten while earlier copies still wait in the stream, and the
+    source array is rewritten after each upload; no batch is corrupted."""
+    from mash_tpu_torch.utils.transfer import Uploader
+
+    rng = np.random.default_rng(90)
+    up = Uploader(gpu, slots=2)
+    src = np.empty((4, 1 << 16), np.uint8)
+    sent, got = [], []
+    for i in range(48):
+        torch.cuda._sleep(1_000_000)  # about half a millisecond
+        src[:] = rng.integers(0, 256, src.shape, dtype=np.uint8)
+        rows = 1 + i % 4  # the slots see batches of every size
+        sent.append(src[:rows].copy())
+        got.append(up.upload(src[:rows]))
+        src[:] = 0  # the caller reuses its buffer at once
+    torch.cuda.synchronize()
+    for a, t in zip(sent, got):
+        np.testing.assert_array_equal(t.cpu().numpy(), a)
+    assert up.pinned_bytes() <= 2 * 4 << 16
+
+
+def test_readback_waits_for_its_copy(gpu):
+    from mash_tpu_torch.utils.transfer import Readback
+
+    x = torch.arange(1 << 20, dtype=torch.int64, device=gpu)
+    torch.cuda._sleep(5_000_000)
+    back = Readback(x * 3)
+    torch.cuda._sleep(50_000_000)  # work after the copy is not waited on
+    np.testing.assert_array_equal(back.numpy(),
+                                  np.arange(1 << 20, dtype=np.int64) * 3)
+
+
+def test_deferred_certificate_planted_rows(gpu):
+    """The kernel's route leaves the planted rows empty and marks them;
+    settled, the states equal the CPU's plain path."""
+    rows = torch.from_numpy(_failing_rows(91, 6))
+    kw = dict(alphabet=DNA, k=21, seed=42, use64=True, noncanonical=False,
+              preserve_case=False, s=1300)
+    before = sk.LAUNCHES["sketch_select"]
+    H, C, pending = sk.sketch_chunks_deferred(rows.to(gpu), **kw)
+    assert sk.LAUNCHES["sketch_select"] == before + 1
+    bad = pending.mask.numpy()
+    assert bad.tolist() == [False, True, False, True, False, False]
+    assert int(C[torch.from_numpy(bad).to(gpu)].sum()) == 0
+    sel, h, c = pending.states()
+    H[sel], C[sel] = h, c
+    want = sk.sketch_chunks_plain(rows, **kw)
+    assert torch.equal(H.cpu(), want[0]) and torch.equal(C.cpu(), want[1])
+    fused = sk.sketch_chunks_fused(rows.to(gpu), **kw)
+    assert torch.equal(fused[0].cpu(), want[0])
+
+
+@pytest.mark.parametrize("mesh2", [False, True], ids=["one", "mesh2"])
+def test_fold_batches_cuda_matches_cpu(gpu, mesh2):
+    """``fold_batches`` on the card (and sharded over ``[cuda:0,
+    cuda:0]``) with failing rows in several batches, one of them the
+    last, settled at ``state_to_ref``, equals the CPU's fold."""
+    from mash_tpu_torch.ops import sketch_ops
+
+    rows = _failing_rows(92, 12)
+    batches = [rows[i : i + 4] for i in range(0, 12, 4)]
+    refs = {}
+    for dev in ("cuda", "cpu"):
+        eng = _engine(dev)
+        if dev == "cuda" and mesh2:
+            eng.devices = _mesh2(gpu)
+        state = eng.fold_batches(eng.empty_state(), batches)
+        if dev == "cuda":
+            assert isinstance(state, sketch_ops.PendingState)
+        refs[dev] = eng.state_to_ref(state)
+    np.testing.assert_array_equal(refs["cuda"].hashes, refs["cpu"].hashes)
+    np.testing.assert_array_equal(refs["cuda"].counts, refs["cpu"].counts)
+
+
+def test_mesh_sketch_failing_rows_cuda_matches_cpu(gpu):
+    """``sharded_sketch_chunks`` over ``[cuda:0, cuda:0]`` settles both
+    devices' failing rows."""
+    from mash_tpu_torch.ops import sketch_ops
+    from mash_tpu_torch.parallel import mesh
+
+    rows = _failing_rows(93, 8)
+    params = default_nucleotide_params(21, 1300, 42)
+    got = mesh.sharded_sketch_chunks(_mesh2(gpu), params,
+                                     torch.from_numpy(rows).to(gpu), 1300)
+    kw = dict(alphabet=DNA, k=21, seed=42, use64=True, noncanonical=False,
+              preserve_case=False, s=1300)
+    want = sketch_ops.tree_merge(
+        *sk.sketch_chunks_plain(torch.from_numpy(rows), **kw), s=1300)
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
+
+
+def test_exact_route_in_flight_cuda_matches_cpu(gpu, tmp_path, monkeypatch):
+    """The exact route with 1100-byte chunks (seven reads each, so many
+    in flight): ``-r -m 2`` and ``-c 3`` (stopped mid-stream) write the
+    CPU's ``.msh`` bytes and stderr."""
+    import functools
+
+    from mash_tpu_torch.core import engine as te
+    from mash_tpu_torch.core import loader
+
+    monkeypatch.setattr(loader, "SketchEngine",
+                        functools.partial(te.SketchEngine, chunk_len=1100))
+    genome = _seq(94, b"ACGT", 8000)
+    rng = np.random.default_rng(95)
+    path = tmp_path / "reads.fq"
+    with open(path, "wb") as f:
+        for i in range(300):
+            p = int(rng.integers(0, genome.size - 150))
+            f.write(b"@q%d\n%s\n+\n%s\n"
+                    % (i, genome[p : p + 150].tobytes(), b"I" * 150))
+    for opts in (["-r", "-m", "2"], ["-c", "3"]):
+        got = {}
+        for device in ("cuda", "cpu"):
+            prefix = str(tmp_path / device)
+            _, err = _cli(monkeypatch, device,
+                          ["sketch", *opts, "-o", prefix, str(path)])
+            got[device] = (open(prefix + ".msh", "rb").read(),
+                           err.replace(prefix, "OUT"))
+        assert got["cuda"] == got["cpu"], opts
+    assert "Reads used" in got["cpu"][1]
+
+
+@pytest.mark.parametrize("triangle", [False, True], ids=["rect", "triangle"])
+def test_stripes_depth3_equals_depth1(gpu, triangle):
+    rng = np.random.default_rng(96)
+    qh, qn = _sketches(rng, 100, 300, 900)
+    rh, rn = (qh, qn) if triangle else _sketches(rng, 70, 300, 900)
+    out = {}
+    for depth in (1, 3):
+        out[depth] = [(i0, st) for i0, st in td.stream_pair_stripes(
+            qh, qn, rh, rn, 250, "cuda", row_block=16, tile_r=32,
+            triangle=triangle, depth=depth)]
+    cpu = list(td.stream_pair_stripes(qh, qn, rh, rn, 250, "cpu",
+                                      row_block=16, tile_r=32,
+                                      triangle=triangle))
+    for got in (out[3], cpu):
+        assert [i0 for i0, _ in got] == [i0 for i0, _ in out[1]]
+        for (_, a), (_, b) in zip(got, out[1]):
+            np.testing.assert_array_equal(a, b)
+
+
+@contextlib.contextmanager
+def _no_sync(events):
+    """Every synchronizing CUDA call raises (``set_sync_debug_mode``);
+    ``Event.synchronize`` calls, the waits by design, are counted."""
+    sync = torch.cuda.Event.synchronize
+
+    def counted(self):
+        events.append(1)
+        return sync(self)
+
+    torch.cuda.synchronize()
+    torch.cuda.Event.synchronize = counted
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.Event.synchronize = sync
+
+
+def test_streaming_paths_make_no_host_read_per_batch(gpu):
+    """Steady state of each streaming path under
+    ``torch.cuda.set_sync_debug_mode("error")``: ``fold_batches`` (the
+    mask read a batch behind, the ring's slot waits), the exact route's
+    chunk in flight, the stripes at depth 3 and the screen fold.  The
+    only waits are ``Event.synchronize`` calls, at most two a batch."""
+    from mash_tpu_torch.core.engine import sketch_records_exact
+    from mash_tpu_torch.io.fastx import Record
+    from mash_tpu_torch.utils.transfer import Uploader
+
+    rows = _failing_rows(97, 24)
+    batches = [rows[i : i + 4] for i in range(0, 24, 4)]
+    eng = _engine("cuda")
+    eng.state_to_ref(eng.fold_batches(eng.empty_state(), batches[:2]))
+    events = []
+    with _no_sync(events):
+        state = eng.fold_batches(eng.empty_state(), batches)
+    assert len(events) <= 2 * len(batches)
+    want = _engine("cpu")
+    ref, cpu_ref = eng.state_to_ref(state), want.state_to_ref(
+        want.fold_batches(want.empty_state(), batches))
+    np.testing.assert_array_equal(ref.hashes, cpu_ref.hashes)
+
+    # the exact route: a chunk a drain
+    p = default_nucleotide_params(21, 1000, 42)
+    p.reads, p.min_cov = True, 2
+    seqs = [_seq(200 + i, b"ACGT", 150).tobytes() for i in range(400)]
+    recs = [Record("r%d" % i, "", s) for i, s in enumerate(seqs)]
+    exact = _engine_params(p, "cuda", 1100)
+    sketch_records_exact(exact, recs[:20], "warm")
+    events.clear()
+    with _no_sync(events):
+        got, _, count, _ = sketch_records_exact(exact, recs, "x")
+    n_chunks = -(-len(recs) // 7)
+    assert count == len(recs) and len(events) <= 3 * n_chunks
+    cpu, _, _, _ = sketch_records_exact(_engine_params(p, "cpu", 1100),
+                                        recs, "x")
+    np.testing.assert_array_equal(got.hashes, cpu.hashes)
+
+    # the stripes: after the first stripe (the set-up uploads and ranks)
+    rng = np.random.default_rng(98)
+    qh, qn = _sketches(rng, 160, 300, 900)
+    it = td.stream_pair_stripes(qh, qn, qh, qn, 250, "cuda", row_block=16,
+                                tile_r=32, triangle=True, depth=3)
+    stripes = [next(it)]
+    events.clear()
+    with _no_sync(events):
+        stripes += list(it)
+    tiles = sum(-(-(i0 + 15) // 32) for i0 in range(0, 160, 16))
+    assert len(events) <= tiles  # a wait a tile's copy
+    assert [i0 for i0, _ in stripes] == list(range(0, 160, 16))
+
+    # the screen fold over uploaded batches
+    db = np.unique(np.random.default_rng(99).integers(
+        0, 2**63, 5000, dtype=np.uint64))
+    _, fold_rows, counts, finalize = so.make_screen_fold(
+        p, db, 1000, device="cuda")
+    from mash_tpu_torch.ops import sketch_ops
+
+    state = sketch_ops.empty_state(1000, gpu)
+    up = Uploader(gpu)
+    screen_rows = _failing_rows(100, 24, width=40 * 1024)
+    counts, state = fold_rows(counts, state, up.upload(screen_rows[:4]))
+    events.clear()
+    with _no_sync(events):
+        for i in range(4, 24, 4):
+            counts, state = fold_rows(counts, state,
+                                      up.upload(screen_rows[i : i + 4]))
+    assert len(events) <= 2 * 5
+    finalize(counts)
+    assert int((state[1] > 0).sum()) == 1000
+
+
+def _engine_params(params, device, chunk_len):
+    from mash_tpu_torch.core.engine import SketchEngine
+
+    return SketchEngine(params, device=device, chunk_len=chunk_len)

@@ -43,6 +43,7 @@ def test_no_forbidden_imports(path):
 def test_entry_points_load_no_jax():
     code = (
         "import sys, mash_tpu_torch.__main__, mash_tpu_torch.convert\n"
+        "import mash_tpu_torch.utils.transfer\n"
         "from mash_tpu_torch.commands import command_registry\n"
         "command_registry()\n"
         "import chip_smoke\n"
