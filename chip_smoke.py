@@ -30,6 +30,10 @@ Phases (any failure exits non-zero before the result lines):
    and two ``torch.searchsorted`` calls (the yardstick), and again with
    every lane invalid (the batch alone) and without hits; the plain work
    around them (hash pass, cardinality fold) at the screen path's shapes;
+   ``hash_windows`` (the window hash, ``ops.kmers.hash_chunk`` on the
+   card) on the screen batch [32, 1 MiB] at k = 21 (64-bit, canonical)
+   and k = 16 (32-bit), on one 1 MiB row of the exact route and on one
+   1 MiB piece of windowed mode's raw bytes;
 4. end to end through ``mash_tpu_torch.__main__.main``: ``sketch`` of 64
    synthetic 4 Mibase genomes, ``dist`` of those 64 sketches (4096 pairs,
    the 64-bit kernel) and of 1024 sketches with controlled overlap
@@ -80,7 +84,8 @@ Phases (any failure exits non-zero before the result lines):
    equal phase 6's bytes, the stripes (512 rows, alternate ranks) in
    stripe order the single process's stdout, and rank 0's ``screen``,
    ``taxscreen``, ``within`` and ``find`` stdout the single process's,
-   rank 1's empty; K1, K3 and K4 must launch on both ranks.  Each command
+   rank 1's empty; K1, K3, K4 and the window hash must launch on both
+   ranks.  Each command
    prints both ranks' walls beside the single process's (two ranks on one
    card check the assembly rules; they are no scaling figure).  Then
    ``parallel.mesh``'s ``sharded_sketch_chunks`` ([32, 1 MiB]),
@@ -104,7 +109,10 @@ Phases (any failure exits non-zero before the result lines):
 Every kernel's launch count is reset just before each main-path command
 of phases 4 to 9 and read just after it; the kernels that command runs
 must have launched, and no ``torch.sort`` call of the screen counter may
-be left on the screen commands' path.  Each main-path command prints one
+be left on the screen commands' path.  No main-path command, in one
+process or in a rank, may hash on the card with the plain
+``hash_chunk_plain`` (a counter of its calls with a CUDA tensor must read
+0).  Each main-path command prints one
 JSON line with its wall seconds and the wall seconds of its stages
 (``mash_tpu_torch.utils.stage``); with ``--profile`` the line also holds
 the share of that wall time in which the card ran a kernel
@@ -318,8 +326,9 @@ def device_profile(fn):
 
 # Kernel families by name, first match wins: the port's own kernels, then
 # PyTorch's sorts (torch.sort), top-k selection, elementwise arithmetic
-# (most of it the plain hash pass of screen) and copies.
+# (the folds and certificates) and copies.
 KERNEL_FAMILIES = (
+    ("hash_windows", ("hash_windows",)),
     ("screen_count", ("screen_count",)),
     ("screen_table", ("screen_table",)),
     ("sketch_select", ("sketch_select",)),
@@ -355,6 +364,7 @@ def timed_cli(name, argv, env, profile, extra=None, stderr=None):
 
     pop_stage_totals()
     torch.cuda.synchronize()
+    PLAIN_ON_CARD["hash_chunk_plain"] = 0
     line = {"command": name}
     if profile == "host":
         import cProfile
@@ -385,7 +395,10 @@ def timed_cli(name, argv, env, profile, extra=None, stderr=None):
     # argument lies in it), so that runs and commits compare
     stable = out.replace(os.path.dirname(argv[-1]) + os.sep, "")
     line.update(wall_s=wall, stages_s=pop_stage_totals(),
-                stdout_sha256=hashlib.sha256(stable.encode()).hexdigest())
+                stdout_sha256=hashlib.sha256(stable.encode()).hexdigest(),
+                plain_hash_on_card=PLAIN_ON_CARD["hash_chunk_plain"])
+    require(line["plain_hash_on_card"] == 0, "%s hashed on the card with "
+            "the plain pass %d times" % (name, line["plain_hash_on_card"]))
     if extra is not None:
         line.update(extra(wall))
     print(json.dumps(line), flush=True)
@@ -643,6 +656,28 @@ def phase_kernels(rng, report, folder):
     for H in SCREEN_H:
         screen_count_case(gen, H, H == SCREEN_H[0], report)
     screen_items(rng)
+    # the window hash: the screen batch (``full``), then one 1 MiB row of
+    # the exact route and one 1 MiB piece of windowed mode, from a third
+    # child generator
+    for k, use64 in ((K, True), (16, False)):
+        hash_windows_case(
+            report, full, dict(alphabet=tuple(b"ACGT"), k=k, seed=42,
+                               use64=use64, noncanonical=False,
+                               preserve_case=False),
+            hash_instr, k == K, "[32, 1 MiB] k=%d use64=%s canonical"
+            % (k, use64))
+    child = np.random.default_rng(rng.bit_generator.seed_seq.spawn(1)[0])
+    row = torch.from_numpy(random_chunks(child, 1, length)[0]).to(dev)
+    hash_windows_case(
+        report, row, dict(alphabet=tuple(b"ACGT"), k=K, seed=42, use64=True,
+                          noncanonical=False, preserve_case=False),
+        hash_instr, False, "exact-route row [1 MiB] k=%d" % K,
+        launches_from="sketch_reads_m2")
+    hash_windows_case(
+        report, row, dict(alphabet=(), k=K, seed=42, use64=True,
+                          noncanonical=True, preserve_case=True),
+        hash_instr, False, "windowed raw piece [1 MiB] k=%d" % K,
+        launches_from="sketch_w")
     print("phase kernels: ok", flush=True)
 
 
@@ -675,29 +710,58 @@ def stream_tiles(rng, pairs) -> None:
 
 
 def screen_items(rng) -> None:
-    """Prints the device milliseconds of the plain PyTorch work beside
-    ``screen_count`` on the screen path: the hash pass and the
-    cardinality fold of one ingest batch."""
+    """Prints the device milliseconds of the work beside ``screen_count``
+    on the screen path: the hash pass (``hash_chunk``: the kernel
+    ``hash_windows``, with its plain twin beside it) and the cardinality
+    fold of one ingest batch."""
     import torch
 
     from mash_tpu_torch.core.engine import DEFAULT_CHUNK
     from mash_tpu_torch.core.loader import _fast_batch_rows
-    from mash_tpu_torch.ops import sketch_ops
-    from mash_tpu_torch.ops.kmers import hash_chunk
+    from mash_tpu_torch.ops import kmers, sketch_ops
 
     dev = torch.device("cuda")
     rows = torch.from_numpy(random_chunks(
         rng, _fast_batch_rows(dev), DEFAULT_CHUNK)).to(dev)
     kw = dict(alphabet=tuple(b"ACGT"), k=K, seed=42, use64=True,
               noncanonical=False, preserve_case=False)
-    h, v = hash_chunk(rows, **kw)
+    h, v = kmers.hash_chunk(rows, **kw)
+    shape = "[%d, %d]" % tuple(rows.shape)
     items = {
-        "hash_chunk [%d, %d]" % tuple(rows.shape):
-            cuda_ms(lambda: hash_chunk(rows, **kw)),
+        "hash_chunk (hash_windows) " + shape:
+            cuda_ms(lambda: kmers.hash_chunk(rows, **kw)),
+        "hash_chunk_plain " + shape:
+            cuda_ms(lambda: kmers.hash_chunk_plain(rows, **kw)),
         "sketch_chunk_batch [%d, %d]" % tuple(h.shape):
             cuda_ms(lambda: sketch_ops.sketch_chunk_batch(h, v, s=S)),
     }
     print(json.dumps({"screen_items_ms": items}), flush=True)
+
+
+def hash_windows_case(report, seq, kw, hash_instr, main, shape,
+                      launches_from=None):
+    """``hash_windows`` on ``seq`` against its twin ``hash_chunk_plain``
+    (exact equality of h and v on every window), timed, with its bound:
+    the bytes read once and the hashes and flags written once, or the
+    hash's instructions a window, whichever is longer."""
+    import torch
+
+    from mash_tpu_torch.ops import hash_kernel, kmers
+
+    got = hash_kernel.hash_windows(seq, **kw)
+    want = kmers.hash_chunk_plain(seq, **kw)
+    torch.cuda.synchronize()
+    err = max_abs_err(got, want)
+    require(err == 0.0, "hash_windows %s disagrees" % shape)
+    ms = cuda_ms(lambda: hash_kernel.hash_windows(seq, **kw))
+    plain_ms = cuda_ms(lambda: kmers.hash_chunk_plain(seq, **kw))
+    windows = got[0].numel()
+    bound_ms, bound_by = bound(seq.numel() + 9 * windows,
+                               windows * max(hash_instr[kw["k"]].values()))
+    report.append(dict(
+        name="hash_windows", shape=shape, max_abs_err=err, kernel_ms=ms,
+        plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+        library_ms=None, main=main, launches_from=launches_from))
 
 
 def screen_count_case(gen, H: int, main: bool, report):
@@ -813,10 +877,40 @@ def sort_sizes():
 
 
 def _launch_counters():
-    from mash_tpu_torch.ops import pairwise_kernel, screen_kernel, sketch_kernel
+    from mash_tpu_torch.ops import (
+        hash_kernel,
+        pairwise_kernel,
+        screen_kernel,
+        sketch_kernel,
+    )
 
     return (sketch_kernel.LAUNCHES, pairwise_kernel.LAUNCHES,
-            screen_kernel.LAUNCHES)
+            screen_kernel.LAUNCHES, hash_kernel.LAUNCHES)
+
+
+# calls of the plain hash pass with a CUDA tensor (count_plain_on_card)
+PLAIN_ON_CARD = {"hash_chunk_plain": 0}
+
+
+def count_plain_on_card() -> None:
+    """Wraps ``ops.kmers.hash_chunk_plain``, in every module of the package
+    that holds it, so that each call with a CUDA tensor adds one to
+    ``PLAIN_ON_CARD``: the card's path must hash through the kernel."""
+    from mash_tpu_torch.commands import command_registry
+    from mash_tpu_torch.ops import kmers
+
+    command_registry()  # every module that may hold the name, first
+    real = kmers.hash_chunk_plain
+
+    def counted(seq, **kw):
+        if seq.device.type == "cuda":
+            PLAIN_ON_CARD["hash_chunk_plain"] += 1
+        return real(seq, **kw)
+
+    for name, mod in list(sys.modules.items()):
+        if (name.split(".")[0] == "mash_tpu_torch"
+                and getattr(mod, "hash_chunk_plain", None) is real):
+            setattr(mod, "hash_chunk_plain", counted)
 
 
 def reset_launches() -> None:
@@ -969,7 +1063,8 @@ def phase_screen(rng, folder, paths, all_msh, profile=None):
         counts = {}
         with sort_sizes() as sorts:
             out, line = counted_cli(
-                name, argv, ("screen_table", "screen_count"), profile, counts,
+                name, argv, ("screen_table", "screen_count", "hash_windows"),
+                profile, counts,
                 lambda w: {"bases": bases, "bases_per_s": bases / w})
         require(not any(m.startswith("mash_tpu_torch.ops.screen_")
                         for m in sorts),
@@ -1164,7 +1259,8 @@ def phase_reads(rng, folder, paths, all_msh, cmd_launches,
     print("sketch -r estimates: %s" % " | ".join(
         ln for ln in err.splitlines() if ln.startswith("Estimated")))
     _, err, line = run("sketch_reads_m2", ["sketch", "-r", "-m", "2", "-o",
-                                           m2_msh, *reads], read_bases, [])
+                                           m2_msh, *reads], read_bases,
+                       ["hash_windows"])
     require("engine:hash_bytes" in line["stages_s"],
             "sketch -r -m 2 did not take the exact route")
     print("sketch -r -m 2 estimates: %s" % " | ".join(
@@ -1443,11 +1539,13 @@ def phase_windowed(folder, rng, paths, all_msh, plasmids_msh, cmd_launches,
                 "windowed_hash_ms_per_MiB": windowed_hash_ms()}
 
     _, line = run("sketch_w", ["sketch", "-W", "-s", str(WINDOW_S), "-o", msw,
-                               *paths[:N_WINDOWED]], [], sketch_w_extra)
+                               *paths[:N_WINDOWED]], ["hash_windows"],
+                  sketch_w_extra)
     require(0.005 * bases < line["loci"] < 0.05 * bases,
             "sketch -W stored %d loci of %d bases" % (line["loci"], bases))
 
-    out, _ = run("find_msw", ["find", "-b", "1", msw, frags], [])
+    out, _ = run("find_msw", ["find", "-b", "1", msw, frags],
+                 ["hash_windows"])
     hits = find_hits(out)
     require(len(hits) == N_FRAGMENTS, "find hit %d of %d fragments"
             % (len(hits), N_FRAGMENTS))
@@ -1474,7 +1572,8 @@ def phase_windowed(folder, rng, paths, all_msh, plasmids_msh, cmd_launches,
     with open(msw0["gpu"], "rb") as a, open(msw0["cpu"], "rb") as b:
         require(a.read() == b.read(), "sketch -W .msw bytes of genome 0 "
                 "differ from the CPU's")
-    fasta_out, _ = run("find_fasta", ["find", paths[0], frags], [])
+    fasta_out, _ = run("find_fasta", ["find", paths[0], frags],
+                       ["hash_windows"])
     require(fasta_out == run_cli(["find", msw0["gpu"], frags], GPU),
             "find against genome 0's FASTA differs from find against its "
             ".msw")
@@ -1562,24 +1661,25 @@ def rank_worker(cfg_path: str) -> int:
     the gloo group that ``MASH_TPU_TORCH_COORDINATOR``,
     ``..._NUM_PROCESSES`` and ``..._PROCESS_ID`` describe, runs each of
     the config's commands through ``mash_tpu_torch.__main__.main`` on the
-    card with every launch counter reset just before it, and writes its
-    stdout, its stderr, its wall seconds and its launch counts to files."""
+    card with every launch counter (and the plain hash pass's count on the
+    card) reset just before it, and writes its stdout, its stderr, its
+    wall seconds and those counts to files."""
     with open(cfg_path) as f:
         cfg = json.load(f)
     sys.path.insert(0, ROOT)
     import torch
 
     from mash_tpu_torch.__main__ import main as cli
-    from mash_tpu_torch.commands import command_registry
     from mash_tpu_torch.parallel import multihost as mh
 
     require(mh.maybe_init_distributed() and mh.process_count() == RANKS,
             "no process group of %d ranks" % RANKS)
     rank = mh.process_index()
-    command_registry()
+    count_plain_on_card()
     results = {}
     for name, argv in cfg["commands"]:
         reset_launches()
+        PLAIN_ON_CARD["hash_chunk_plain"] = 0
         torch.cuda.synchronize()
         out, err = io.StringIO(), io.StringIO()
         t0 = time.perf_counter()
@@ -1593,7 +1693,9 @@ def rank_worker(cfg_path: str) -> int:
         for ext, text in ((".out", out.getvalue()), (".err", err.getvalue())):
             with open(base + ext, "w") as f:
                 f.write(text)
-        results[name] = {"wall_s": wall, "launches": read_launches()}
+        results[name] = {"wall_s": wall, "launches": read_launches(),
+                         "plain_hash_on_card": PLAIN_ON_CARD[
+                             "hash_chunk_plain"]}
     with open(os.path.join(cfg["folder"], "rank%d.json" % rank), "w") as f:
         json.dump(results, f)
     return 0
@@ -1692,8 +1794,9 @@ def phase_ranks(folder, paths, all_msh, plasmids_msh, find_head):
     ]
     kernels = {"sketch_reads": ["sketch_select"],
                "triangle_4096": ["pairwise32"], "dist_d": ["pairwise32"],
-               "screen": ["screen_table", "screen_count"],
-               "taxscreen": ["screen_table", "screen_count"]}
+               "screen": ["screen_table", "screen_count", "hash_windows"],
+               "taxscreen": ["screen_table", "screen_count",
+                             "hash_windows"]}
     t0 = time.perf_counter()
     results = run_ranks(folder, commands)
     print("phase ranks: %d ranks ran %d commands in %.1f s (startup "
@@ -1701,6 +1804,9 @@ def phase_ranks(folder, paths, all_msh, plasmids_msh, find_head):
           flush=True)
     for name, _argv in commands:
         for rank in range(RANKS):
+            require(results[rank][name]["plain_hash_on_card"] == 0,
+                    "rank %d's %s hashed on the card with the plain pass"
+                    % (rank, name))
             for kernel in kernels.get(name, ()):
                 require(results[rank][name]["launches"][kernel] > 0,
                         "rank %d's %s did not launch %s" % (rank, name,
@@ -1711,7 +1817,9 @@ def phase_ranks(folder, paths, all_msh, plasmids_msh, find_head):
             "command": "ranks2_" + name, "note": TWO_RANK_NOTE,
             "rank_walls_s": [r[name]["wall_s"] for r in results],
             "single_wall_s": single["wall_s"],
-            "rank_launches": [r[name]["launches"] for r in results]}),
+            "rank_launches": [r[name]["launches"] for r in results],
+            "rank_plain_hash_on_card": [r[name]["plain_hash_on_card"]
+                                        for r in results]}),
             flush=True)
     with open(pooled, "rb") as a, open(os.path.join(folder, "reads.msh"),
                                        "rb") as b:
@@ -1827,7 +1935,8 @@ def phase_mesh(rng, folder, paths):
     check("sharded_screen_counts", "batch %s against %d DB hashes in %d "
           "ranges" % (list(batch.shape), len(db), len(devices)),
           lambda: mesh.sharded_screen_counts(devices, params, db, [batch], S),
-          one_device, {"screen_table": 2, "screen_count": 2}, same_counts)
+          one_device, {"screen_table": 2, "screen_count": 2,
+                       "hash_windows": 2}, same_counts)
     pop_stage_totals()  # the one-device fold's stage: no command's
     print("phase mesh: ok in %.1f s" % (time.perf_counter() - t_phase),
           flush=True)
@@ -2135,11 +2244,13 @@ def main(argv=None) -> int:
     from mash_tpu_torch.ops import cuda_build
 
     t0 = time.perf_counter()
-    cuda_build.build(["sketch_select", "pairwise", "screen_count"])
+    cuda_build.build(["sketch_select", "pairwise", "screen_count",
+                      "hash_windows"])
     require(native.load_library() is not None, "native library build")
     print("phase build: ok in %.1f s" % (time.perf_counter() - t0),
           flush=True)
 
+    count_plain_on_card()
     rng = np.random.default_rng(args.seed)
     report = []
     with tempfile.TemporaryDirectory(prefix="mash_smoke_") as folder:
@@ -2158,7 +2269,7 @@ def main(argv=None) -> int:
         phase_mesh(rng, folder, paths)
         phase_async(folder, paths, plasmids_msh, args.seed)
     # each kernel's count from the run of the path that calls it
-    for name in ("screen_table", "screen_count"):
+    for name in ("screen_table", "screen_count", "hash_windows"):
         launches[name] = screen_launches[name]
 
     sources = {
@@ -2174,6 +2285,9 @@ def main(argv=None) -> int:
         # kernel's sorted tiles
         "screen_table": ("mash_tpu_torch/ops/csrc/screen_count.cu",
                          "mash_tpu/ops/pallas_screen.py:77"),
+        # a jax.jit function that XLA fuses, not a Pallas kernel
+        "hash_windows": ("mash_tpu_torch/ops/csrc/hash_windows.cu",
+                         "mash_tpu/ops/kmers.py:129"),
     }
     kernels = []
     for r in report:

@@ -50,9 +50,9 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
-namespace {
+#include "mmh3.cuh"  // u64, mmh3_h1, bswap64
 
-typedef unsigned long long u64;
+namespace {
 
 constexpr int C = 2048;             // windows per subrow (one block)
 constexpr int THREADS = 256;
@@ -66,67 +66,6 @@ struct Luts {
   uint8_t alpha[256];  // 1 if the byte is in the alphabet
   uint8_t comp[256];   // complement byte of alphabet members, else 0
 };
-
-__device__ __forceinline__ u64 rotl64(u64 x, int r) {
-  return (x << r) | (x >> (64 - r));
-}
-
-__device__ __forceinline__ u64 fmix64(u64 k) {
-  k ^= k >> 33;
-  k *= 0xff51afd7ed558ccdULL;
-  k ^= k >> 33;
-  k *= 0xc4ceb9fe1a85ec53ULL;
-  k ^= k >> 33;
-  return k;
-}
-
-// MurmurHash3_x64_128 h1 over `len` bytes packed little-endian in the
-// NW = ceil(len / 8) words w[] (zero past len).  The tail's words are the
-// last one or two, so every index is known at compile time.
-template <int NW>
-__device__ __forceinline__ u64 mmh3_h1(const u64 (&w)[NW], int len,
-                                       uint32_t seed) {
-  const u64 c1 = 0x87c37b91114253d5ULL;
-  const u64 c2 = 0x4cf5ad432745937fULL;
-  u64 h1 = seed, h2 = seed;
-  const int nblocks = len >> 4;
-#pragma unroll
-  for (int b = 0; b < NW / 2; ++b) {
-    if (b < nblocks) {
-      u64 k1 = w[2 * b], k2 = w[2 * b + 1];
-      k1 *= c1; k1 = rotl64(k1, 31); k1 *= c2; h1 ^= k1;
-      h1 = rotl64(h1, 27); h1 += h2; h1 = h1 * 5 + 0x52dce729;
-      k2 *= c2; k2 = rotl64(k2, 33); k2 *= c1; h2 ^= k2;
-      h2 = rotl64(h2, 31); h2 += h1; h2 = h2 * 5 + 0x38495ab5;
-    }
-  }
-  const int tlen = len & 15;
-  if constexpr (NW >= 2) {
-    if (tlen > 8) {  // words NW-2 (k1) and NW-1 (k2)
-      u64 k2 = w[NW - 1];
-      k2 *= c2; k2 = rotl64(k2, 33); k2 *= c1; h2 ^= k2;
-      u64 k1 = w[NW - 2];
-      k1 *= c1; k1 = rotl64(k1, 31); k1 *= c2; h1 ^= k1;
-    }
-  }
-  if (tlen > 0 && tlen <= 8) {  // word NW-1 (k1)
-    u64 k1 = w[NW - 1];
-    k1 *= c1; k1 = rotl64(k1, 31); k1 *= c2; h1 ^= k1;
-  }
-  h1 ^= (u64)len;
-  h2 ^= (u64)len;
-  h1 += h2;
-  h2 += h1;
-  h1 = fmix64(h1);
-  h2 = fmix64(h2);
-  return h1 + h2;
-}
-
-// memcmp order of little-endian packed bytes: compare byte-swapped words
-__device__ __forceinline__ u64 bswap64(u64 x) {
-  const unsigned lo = (unsigned)x, hi = (unsigned)(x >> 32);
-  return ((u64)__byte_perm(lo, 0, 0x0123) << 32) | __byte_perm(hi, 0, 0x0123);
-}
 
 __device__ __forceinline__ u64 min64(u64 a, u64 b) { return a < b ? a : b; }
 __device__ __forceinline__ u64 max64(u64 a, u64 b) { return a < b ? b : a; }

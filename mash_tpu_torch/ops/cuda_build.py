@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by
 ``nvcc`` for Hopper (``sm_90a``) into ``ops/_build/lib<name>.so`` at
 first use, then loaded with ``ctypes``.  A library is rebuilt when its
-source is newer.  Nothing here runs at import time: the CPU tests
-import every module on machines without ``nvcc``.
+source or a shared header (``csrc/*.cuh``) is newer.  Nothing here runs
+at import time: the CPU tests import every module on machines without
+``nvcc``.
 """
 
 from __future__ import annotations
@@ -50,10 +51,15 @@ def _paths(name: str):
 
 
 def _stale(name: str) -> bool:
+    """True when the library is missing or older than its source or any
+    shared header (``csrc/*.cuh``)."""
     src, so = _paths(name)
-    return not os.path.exists(so) or os.path.getmtime(so) < os.path.getmtime(
-        src
-    )
+    if not os.path.exists(so):
+        return True
+    headers = [os.path.join(_CSRC, f) for f in os.listdir(_CSRC)
+               if f.endswith(".cuh")]
+    newest = max(os.path.getmtime(p) for p in [src, *headers])
+    return os.path.getmtime(so) < newest
 
 
 def build(names: Iterable[str]) -> None:

@@ -4,9 +4,11 @@ The counterpart of ``mash_tpu.ops.kmers``: every window position of a
 chunk is processed in parallel, invalid windows (containing non-alphabet
 bytes, padding, or sequence separators) are masked instead of skipped,
 and the per-k-mer hash is an unrolled MurmurHash3_x64_128 over packed
-64-bit words.  These functions are the plain version of the sketch
-kernel (``ops.sketch_kernel``); they run on whatever device their input
-lies on.
+64-bit words.  These functions are the plain version of the window
+hash kernel (``ops.hash_kernel``) and of the sketch kernel
+(``ops.sketch_kernel``); they run on whatever device their input lies
+on.  :func:`hash_chunk` dispatches: a CUDA tensor to the window hash
+kernel, a CPU tensor to :func:`hash_chunk_plain`.
 
 PyTorch has no unsigned 64-bit arithmetic, so hashes are int64 bit
 patterns: ``*`` and ``+`` wrap mod 2^64 exactly as MurmurHash3 needs, a
@@ -225,7 +227,35 @@ def hash_chunk(
     noncanonical: bool,
     preserve_case: bool,
 ):
-    """Hash every k-mer window of ``seq``.
+    """Hash every k-mer window of ``seq``: on the card the window hash
+    kernel (``ops.hash_kernel.hash_windows``), on the CPU
+    :func:`hash_chunk_plain`.  Same arguments and outputs as
+    :func:`hash_chunk_plain`.
+    """
+    kw = dict(alphabet=alphabet, k=k, seed=seed, use64=use64,
+              noncanonical=noncanonical, preserve_case=preserve_case)
+    if seq.device.type == "cpu":
+        return hash_chunk_plain(seq, **kw)
+    if seq.device.type == "cuda":
+        from mash_tpu_torch.ops import hash_kernel
+
+        return hash_kernel.hash_windows(seq, **kw)
+    raise ValueError("hash_chunk runs on cuda or cpu tensors, not %s"
+                     % seq.device)
+
+
+def hash_chunk_plain(
+    seq: torch.Tensor,
+    *,
+    alphabet: tuple,
+    k: int,
+    seed: int,
+    use64: bool,
+    noncanonical: bool,
+    preserve_case: bool,
+):
+    """Hash every k-mer window of ``seq`` with plain torch ops: the twin
+    of the window hash kernel.
 
     Args:
       seq: uint8 tensor ``[..., L]`` of sequence bytes (with separators /

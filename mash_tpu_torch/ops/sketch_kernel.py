@@ -7,13 +7,16 @@ boundary, and its valid-window count, so the full hash array never
 reaches device memory.  :func:`sketch_chunks_deferred` folds those
 candidates to bottom-s and checks an exactness certificate on the full
 64-bit boundary for each row, on the device; a row that fails it is
-recomputed on the plain path, on the same device, once its mask has
-reached the host (at once in :func:`sketch_chunks_fused`, a batch later
-on the streaming paths).
+recomputed from all its window hashes (``ops.kmers.hash_chunk``: the
+window hash kernel on the card) and a full sort, on the same device,
+once its mask has reached the host (at once in
+:func:`sketch_chunks_fused`, a batch later on the streaming paths).
 
 :func:`sketch_select` launches the kernel for a CUDA tensor and runs its
 plain version, :func:`sketch_select_plain`, for a CPU tensor, so the CPU
-tests cover everything around the kernel.
+tests cover everything around the kernel.  The plain versions hash with
+``hash_chunk_plain`` on any device, so that holding the kernel to them
+on the card does not lean on the window hash kernel.
 """
 
 from __future__ import annotations
@@ -23,7 +26,12 @@ import ctypes
 import torch
 
 from mash_tpu_torch.ops import cuda_build
-from mash_tpu_torch.ops.kmers import alphabet_lut, complement_lut, hash_chunk
+from mash_tpu_torch.ops.kmers import (
+    alphabet_lut,
+    complement_lut,
+    hash_chunk,
+    hash_chunk_plain,
+)
 from mash_tpu_torch.ops.sketch_ops import (
     EMPTY,
     Uncertified,
@@ -132,9 +140,9 @@ def sketch_select_plain(
     B, L = chunks.shape
     n = L - k + 1
     R = (n + C - 1) // C
-    h, v = hash_chunk(chunks, alphabet=alphabet, k=k, seed=seed,
-                      use64=use64, noncanonical=noncanonical,
-                      preserve_case=preserve_case)
+    h, v = hash_chunk_plain(chunks, alphabet=alphabet, k=k, seed=seed,
+                            use64=use64, noncanonical=noncanonical,
+                            preserve_case=preserve_case)
     key = torch.where(v, h, torch.full_like(h, EMPTY))
     pad = R * C - n
     if pad:
@@ -150,10 +158,11 @@ def sketch_select_plain(
 
 def sketch_chunks_plain(chunks, *, alphabet, k, seed, use64, noncanonical,
                         preserve_case, s):
-    """``hash_chunk`` + ``sketch_chunk_batch``: the plain bytes -> states."""
-    h, v = hash_chunk(chunks, alphabet=alphabet, k=k, seed=seed,
-                      use64=use64, noncanonical=noncanonical,
-                      preserve_case=preserve_case)
+    """``hash_chunk_plain`` + ``sketch_chunk_batch``: the plain bytes ->
+    states."""
+    h, v = hash_chunk_plain(chunks, alphabet=alphabet, k=k, seed=seed,
+                            use64=use64, noncanonical=noncanonical,
+                            preserve_case=preserve_case)
     return sketch_chunk_batch(h, v, s=s, use64=use64)
 
 
@@ -241,8 +250,8 @@ def sketch_chunks_fused(chunks: torch.Tensor, **kw):
 def sketch_chunks_async(chunks: torch.Tensor, **kw):
     """Device-dispatched bytes -> ``(H, C, pending)`` without a host read.
 
-    CUDA: :func:`sketch_chunks_deferred`.  CPU: the plain ``hash_chunk``
-    + ``sketch_chunk_batch``, with ``pending`` None.
+    CUDA: :func:`sketch_chunks_deferred`.  CPU: the plain
+    ``hash_chunk_plain`` + ``sketch_chunk_batch``, with ``pending`` None.
     """
     if chunks.device.type == "cuda":
         return sketch_chunks_deferred(chunks, **kw)
@@ -255,7 +264,7 @@ def sketch_chunks_auto(chunks: torch.Tensor, **kw):
     """Device-dispatched bytes -> bottom-s states for ``[B, L]`` chunks.
 
     CUDA: the sketch kernel (:func:`sketch_chunks_fused`).  CPU: the
-    plain ``hash_chunk`` + ``sketch_chunk_batch``.
+    plain ``hash_chunk_plain`` + ``sketch_chunk_batch``.
     """
     if chunks.device.type == "cuda":
         return sketch_chunks_fused(chunks, **kw)

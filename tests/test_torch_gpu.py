@@ -12,8 +12,11 @@ since its atomic inserts place the keys of one probe run in any order),
 at edge shapes that ``chip_smoke.py``'s main-path shapes do not reach: a
 ragged last subrow, a row shorter than one subrow, k from 1 to 32, both
 hash widths, N-rich and lowercase input, candidate budgets on both sides
-of the warp selection's limit, the protein alphabet, for the pair kernels
-the capped walk's traps (identical and disjoint rows, zero-size rows,
+of the warp selection's limit, the protein alphabet, for the window hash
+kernel every mode (k from 1 to 32, both widths, canonical or not, case
+kept or not, the protein alphabet, windowed mode's raw bytes), the
+screen batch, ragged and block-straddling 1-D rows, a row of exactly k
+bytes and a strided view, for the pair kernels the capped walk's traps (identical and disjoint rows, zero-size rows,
 widths around a warp, a cap below the sizes and above their sum), tiles
 cut short, rows too wide for shared memory, the streamed path's tile
 with its pad rows, a grid of 75 000 tiles, a real 32-bit hash 0xFFFFFFFF
@@ -151,6 +154,130 @@ def test_sketch_chunks_fused_large_s(gpu, s):
     Hp, Cp = sk.sketch_chunks_plain(x, **kw, s=s)
     assert sk.LAUNCHES["sketch_select"] == before + 1
     assert torch.equal(H, Hp) and torch.equal(C, Cp)
+
+
+def _seq_rare(seed, symbols, rare, shape, p_rare=0.01):
+    """``symbols`` with a fraction ``p_rare`` of ``rare`` bytes, so that
+    windows of every k up to 32 are both valid and invalid."""
+    rng = np.random.default_rng(seed)
+    seq = rng.choice(np.frombuffer(symbols, dtype=np.uint8), size=shape)
+    hit = rng.random(shape) < p_rare
+    seq[hit] = rng.choice(np.frombuffer(rare, dtype=np.uint8),
+                          size=int(hit.sum()))
+    return seq
+
+
+HASH_CASES = [
+    # k, use64, noncanonical, preserve_case, alphabet, symbols, rare, shape
+    (1, False, False, False, "dna", b"ACGTacgt", b"N\x00\xc8", (3, 5000)),
+    (9, True, False, False, "dna", b"ACGTacgt", b"N\x00\xc8", (3, 5000)),
+    (9, False, True, True, "dna", b"ACGT", b"acgtN\x00\xc8", (3, 5000)),
+    (16, False, False, False, "dna", b"ACGTacgt", b"NRY\x00", (2, 9000)),
+    (16, True, True, False, "dna", b"ACGTacgt", b"\x80\xff", (2, 9000)),
+    (21, True, False, False, "dna", b"ACGTacgt", b"N\x00\xc8", (4, 3000)),
+    (21, True, True, True, "dna", b"ACGT", b"acgtN\x00", (4, 3000)),
+    (21, False, False, True, "dna", b"ACGT", b"acgtN", (4, 3000)),
+    (24, True, False, False, "dna", b"AAAAAAAAACGTacgt", b"N", (2, 4000)),
+    (25, True, False, False, "dna", b"ACGTacgt", b"N\x00\xc8", (2, 4000)),
+    (32, True, False, False, "dna", b"ACGTacgt", b"N\x00\xc8", (2, 4000)),
+    (32, False, True, False, "dna", b"ACGTacgt", b"N\x00\xc8", (2, 4000)),
+    (9, True, True, False, "protein", b"ACDEFGHIKLMNPQRSTVWYacd",
+     b"X*\x00", (2, 5000)),
+    (21, True, True, True, "raw", b"ACGTacgt", b"N\x00\xc8", (1, 6000)),
+]
+
+
+@pytest.mark.parametrize(
+    "k,use64,noncanon,preserve,alpha,symbols,rare,shape", HASH_CASES,
+    ids=["k%d_%s_%s%s%s" % (c[0], c[4], "64" if c[1] else "32",
+                            "_nc" if c[2] else "", "_Z" if c[3] else "")
+         for c in HASH_CASES])
+def test_hash_windows_matches_plain(gpu, k, use64, noncanon, preserve, alpha,
+                                    symbols, rare, shape):
+    """K5 equals ``hash_chunk_plain`` on h and v of every window, valid or
+    not, and ``hash_chunk`` on a CUDA tensor launches it."""
+    from mash_tpu_torch.ops import hash_kernel as hk
+    from mash_tpu_torch.ops import kmers
+
+    alphabet = {"dna": DNA, "protein": _protein(), "raw": ()}[alpha]
+    x = torch.from_numpy(_seq_rare(k + shape[1], symbols, rare,
+                                   shape)).to(gpu)
+    kw = dict(alphabet=alphabet, k=k, seed=42, use64=use64,
+              noncanonical=noncanon, preserve_case=preserve)
+    before = hk.LAUNCHES["hash_windows"]
+    h, v = kmers.hash_chunk(x, **kw)
+    hp, vp = kmers.hash_chunk_plain(x, **kw)
+    torch.cuda.synchronize()
+    assert hk.LAUNCHES["hash_windows"] == before + 1
+    assert h.shape == v.shape == (shape[0], shape[1] - k + 1)
+    assert h.dtype == torch.int64 and v.dtype == torch.bool
+    assert torch.equal(h, hp) and torch.equal(v, vp)
+    if alpha != "raw":
+        assert bool(v.any()) and not bool(v.all())
+
+
+@pytest.mark.parametrize("k,use64", [(21, True), (16, False)])
+def test_hash_windows_screen_batch(gpu, k, use64):
+    """The screen path's batch, [32, 1 MiB]."""
+    from mash_tpu_torch.ops import hash_kernel as hk
+    from mash_tpu_torch.ops import kmers
+
+    x = torch.from_numpy(_seq(k, b"ACGTACGTACGTacgtN",
+                              (32, 1 << 20))).to(gpu)
+    kw = dict(alphabet=DNA, k=k, seed=42, use64=use64, noncanonical=False,
+              preserve_case=False)
+    h, v = hk.hash_windows(x, **kw)
+    hp, vp = kmers.hash_chunk_plain(x, **kw)
+    assert torch.equal(h, hp) and torch.equal(v, vp)
+
+
+@pytest.mark.parametrize(
+    "length", [(1 << 20) + 12345, 3 * 1024 + 7 + 20, 21],
+    ids=["ragged_exact_row", "not_a_block_multiple", "L_equals_k"])
+def test_hash_windows_one_row(gpu, length):
+    """1-D rows as the exact route hashes them (no bucket padding)."""
+    from mash_tpu_torch.ops import hash_kernel as hk
+    from mash_tpu_torch.ops import kmers
+
+    x = torch.from_numpy(_seq(length, b"ACGTacgtN\n\x00", length)).to(gpu)
+    kw = dict(alphabet=DNA, k=21, seed=42, use64=True, noncanonical=False,
+              preserve_case=False)
+    h, v = hk.hash_windows(x, **kw)
+    hp, vp = kmers.hash_chunk_plain(x, **kw)
+    assert h.shape == (length - 20,)
+    assert torch.equal(h, hp) and torch.equal(v, vp)
+
+
+def test_hash_windows_windowed_raw_mode(gpu):
+    """``windowed_hash``'s raw forward 64-bit hashes of a 1 MiB piece."""
+    from mash_tpu_torch.core.engine import DEFAULT_CHUNK, windowed_hash
+    from mash_tpu_torch.ops import hash_kernel as hk
+    from mash_tpu_torch.ops import kmers
+
+    x = torch.from_numpy(_seq(4, b"ACGTACGTacgtN", DEFAULT_CHUNK)).to(gpu)
+    before = hk.LAUNCHES["hash_windows"]
+    got = windowed_hash(x, 21, 42)
+    want, _ = kmers.hash_chunk_plain(x, alphabet=(), k=21, seed=42,
+                                     use64=True, noncanonical=True,
+                                     preserve_case=True)
+    assert hk.LAUNCHES["hash_windows"] == before + 1
+    assert torch.equal(got, want)
+
+
+def test_hash_windows_strided_and_leading_dims(gpu):
+    """A non-contiguous [3, 2, L] view keeps its leading dims."""
+    from mash_tpu_torch.ops import hash_kernel as hk
+    from mash_tpu_torch.ops import kmers
+
+    base = torch.from_numpy(_seq(6, b"ACGTacgtN", (3, 2, 2 * 3000))).to(gpu)
+    x = base[..., ::2]
+    assert not x.is_contiguous()
+    kw = dict(alphabet=DNA, k=21, seed=42, use64=True, noncanonical=False,
+              preserve_case=False)
+    h, v = hk.hash_windows(x, **kw)
+    hp, vp = kmers.hash_chunk_plain(x.contiguous(), **kw)
+    assert h.shape == (3, 2, 3000 - 20)
+    assert torch.equal(h, hp) and torch.equal(v, vp)
 
 
 def _sketches(rng, n, s, universe, bits=64, full=False):
