@@ -33,7 +33,11 @@ Phases (any failure exits non-zero before the result lines):
    ``hash_windows`` (the window hash, ``ops.kmers.hash_chunk`` on the
    card) on the screen batch [32, 1 MiB] at k = 21 (64-bit, canonical)
    and k = 16 (32-bit), on one 1 MiB row of the exact route and on one
-   1 MiB piece of windowed mode's raw bytes;
+   1 MiB piece of windowed mode's raw bytes; at the screen batch, k = 21,
+   what sets its floor (the SASS a window takes by pipe, from
+   ``cuobjdump``, its registers and the blocks an SM holds), and on the
+   1 MiB rows, where CUDA events time the host's dispatch, the device
+   time a launch (``torch.profiler``) and the registers a thread;
 4. end to end through ``mash_tpu_torch.__main__.main``: ``sketch`` of 64
    synthetic 4 Mibase genomes, ``dist`` of those 64 sketches (4096 pairs,
    the 64-bit kernel) and of 1024 sketches with controlled overlap
@@ -672,12 +676,12 @@ def phase_kernels(rng, report, folder):
         report, row, dict(alphabet=tuple(b"ACGT"), k=K, seed=42, use64=True,
                           noncanonical=False, preserve_case=False),
         hash_instr, False, "exact-route row [1 MiB] k=%d" % K,
-        launches_from="sketch_reads_m2")
+        launches_from="sketch_reads_m2", one_row=True)
     hash_windows_case(
         report, row, dict(alphabet=(), k=K, seed=42, use64=True,
                           noncanonical=True, preserve_case=True),
         hash_instr, False, "windowed raw piece [1 MiB] k=%d" % K,
-        launches_from="sketch_w")
+        launches_from="sketch_w", one_row=True)
     print("phase kernels: ok", flush=True)
 
 
@@ -738,15 +742,86 @@ def screen_items(rng) -> None:
     print(json.dumps({"screen_items_ms": items}), flush=True)
 
 
+def cuobjdump(*args) -> str:
+    """Standard output of the toolkit's ``cuobjdump`` with ``args``."""
+    from mash_tpu_torch.ops import cuda_build
+
+    tool = os.path.join(os.path.dirname(cuda_build.nvcc()), "cuobjdump")
+    return subprocess.run([tool, *args], check=True, capture_output=True,
+                          text=True, timeout=120).stdout
+
+
+def kernel_registers(lib: str, instance: str) -> int:
+    """Registers per thread of the kernel of the built library ``lib``
+    whose mangled name holds ``instance`` (``cuobjdump -res-usage``)."""
+    regs, fn = [], None
+    for line in cuobjdump("-res-usage", lib).splitlines():
+        if "Function " in line:
+            fn = line.split("Function ", 1)[1].strip().rstrip(":")
+        elif "REG:" in line and fn and instance in fn:
+            regs.append(int(line.split("REG:", 1)[1].split()[0]))
+    require(len(regs) == 1, "cuobjdump showed %d %s kernels"
+            % (len(regs), instance))
+    return regs[0]
+
+
+def hash_windows_floor(lib: str, instance: str, k: int,
+                       canonical: bool) -> dict:
+    """What sets ``hash_windows``'s floor, for one ``instance`` (at ``k``,
+    canonical or not) of the built library ``lib``: the SASS a window
+    takes by pipe (``cuobjdump -sass``: the instructions from one hash's
+    store to shared memory to the next in the unrolled loop of R = 8
+    windows, averaged, the tie branch included), the instance's
+    instructions in all, its registers a thread and the blocks an SM
+    holds (the kernel's own occupancy query)."""
+    import ctypes
+
+    import torch
+
+    from mash_tpu_torch.ops import cuda_build
+
+    ops, fn = [], None
+    for line in cuobjdump("-sass", lib).splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            continue
+        op = line.split("*/", 1)[1].split() if "*/" in line else []
+        if op and op[0].startswith("@"):
+            op = op[1:]
+        if fn and instance in fn and op:
+            ops.append(op[0].rstrip(";"))
+    stores = [i for i, op in enumerate(ops) if op == "STS.64"]
+    require(len(stores) >= 8, "no unrolled window loop in %s" % instance)
+    window = {"fma": 0, "alu": 0, "other": 0}
+    for op in ops[stores[0]:stores[7]]:  # the loop's 8 hash stores first
+        base = op.split(".")[0]
+        pipe = ("fma" if base in FMA_OPCODES and not op.startswith(
+            "IMAD.MOV") else "alu" if base in ALU_OPCODES else "other")
+        window[pipe] += 1
+    grid = cuda_build.load("hash_windows").hash_windows_grid
+    grid.restype = ctypes.c_int
+    blocks = grid(k, int(not canonical))
+    require(blocks > 0, "hash_windows_grid failed")
+    return {"instance": instance,
+            "sass_a_window": {p: c / 7 for p, c in window.items()},
+            "sass_in_all": len(ops),
+            "registers": kernel_registers(lib, instance),
+            "blocks_per_sm": blocks / torch.cuda.get_device_properties(
+                0).multi_processor_count}
+
+
 def hash_windows_case(report, seq, kw, hash_instr, main, shape,
-                      launches_from=None):
+                      launches_from=None, one_row=False):
     """``hash_windows`` on ``seq`` against its twin ``hash_chunk_plain``
     (exact equality of h and v on every window), timed, with its bound:
     the bytes read once and the hashes and flags written once, or the
-    hash's instructions a window, whichever is longer."""
+    hash's instructions a window, whichever is longer.  For ``one_row``
+    shapes, whose CUDA-event time is the host's dispatch, the line also
+    holds the device time a launch (``torch.profiler`` over 20 launches)
+    and the registers per thread of the instance that ran."""
     import torch
 
-    from mash_tpu_torch.ops import hash_kernel, kmers
+    from mash_tpu_torch.ops import cuda_build, hash_kernel, kmers
 
     got = hash_kernel.hash_windows(seq, **kw)
     want = kmers.hash_chunk_plain(seq, **kw)
@@ -758,10 +833,28 @@ def hash_windows_case(report, seq, kw, hash_instr, main, shape,
     windows = got[0].numel()
     bound_ms, bound_by = bound(seq.numel() + 9 * windows,
                                windows * max(hash_instr[kw["k"]].values()))
+    lib = cuda_build._paths("hash_windows")[1]
+    canonical = not kw["noncanonical"]
+    instance = "hash_windows_kernelILi%dELb%dE" % (kw["k"], canonical)
+    extra = {}
+    if main:
+        extra = {"floor": hash_windows_floor(lib, instance, kw["k"],
+                                             canonical)}
+    if one_row:
+        def launches():
+            for _ in range(20):
+                hash_kernel.hash_windows(seq, **kw)
+
+        _, _, _, per_name = device_profile(launches)
+        extra = {
+            "device_ms_a_launch": sum(
+                t for name, t in per_name.items()
+                if "hash_windows" in name) * 1e3 / 20,
+            "registers": kernel_registers(lib, instance)}
     report.append(dict(
         name="hash_windows", shape=shape, max_abs_err=err, kernel_ms=ms,
         plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-        library_ms=None, main=main, launches_from=launches_from))
+        library_ms=None, main=main, launches_from=launches_from, **extra))
 
 
 def screen_count_case(gen, H: int, main: bool, report):

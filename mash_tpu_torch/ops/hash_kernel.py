@@ -13,6 +13,7 @@ only.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -24,14 +25,26 @@ from mash_tpu_torch.ops.kmers import alphabet_lut, complement_lut
 LAUNCHES = {"hash_windows": 0}
 
 
-def _bind(lib):
-    fn = lib.hash_windows_launch
-    if fn.argtypes is None:
-        p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-        fn.argtypes = [p, i64, i64, p, p, i32, ctypes.c_uint32, i32, i32,
-                       i32, p, p, p]
-        fn.restype = ctypes.c_int
+@functools.lru_cache(maxsize=None)
+def _launcher():
+    """The kernel's C entry, built and bound once a process."""
+    fn = cuda_build.load("hash_windows").hash_windows_launch
+    p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    fn.argtypes = [p, i64, i64, p, p, i32, ctypes.c_uint32, i32, i32, i32,
+                   p, p, p]
+    fn.restype = ctypes.c_int
     return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _tables(alphabet: tuple):
+    """``(alphabet_lut, complement_lut)`` of ``alphabet``, built once an
+    alphabet (both functions are pure) and kept read-only; the kernel
+    copies them into its launch parameters."""
+    tables = alphabet_lut(alphabet), complement_lut(alphabet)
+    for t in tables:
+        t.flags.writeable = False
+    return tables
 
 
 def _as_rows(shape, k: int):
@@ -77,20 +90,13 @@ def hash_windows(
     if B == 0:
         return h, v
     rows = seq.reshape(B, L).contiguous()
-    # the kernel takes both tables by value, in its launch parameters
-    alut = alphabet_lut(alphabet)
-    clut = complement_lut(alphabet)
-    fn = _bind(cuda_build.load("hash_windows"))
+    alut, clut = _tables(tuple(alphabet))
+    args = (rows.data_ptr(), B, L, alut.ctypes.data, clut.ctypes.data, k,
+            seed, int(use64), int(noncanonical), int(preserve_case),
+            h.data_ptr(), v.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        status = fn(
-            ctypes.c_void_p(rows.data_ptr()), B, L,
-            alut.ctypes.data_as(ctypes.c_void_p),
-            clut.ctypes.data_as(ctypes.c_void_p),
-            k, seed, int(use64), int(noncanonical), int(preserve_case),
-            ctypes.c_void_p(h.data_ptr()), ctypes.c_void_p(v.data_ptr()),
-            ctypes.c_void_p(stream),
-        )
+        status = _launcher()(*args)
     cuda_build.check(status, "hash_windows")
     LAUNCHES["hash_windows"] += 1
     return h, v

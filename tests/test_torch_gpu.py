@@ -280,6 +280,88 @@ def test_hash_windows_strided_and_leading_dims(gpu):
     assert torch.equal(h, hp) and torch.equal(v, vp)
 
 
+# hash_windows.cu's windows a thread (R) and a work item (TILE)
+K5_R, K5_TILE = 8, 2048
+
+
+def _k5_equal(x, **kw):
+    """K5 against its twin on every window of ``x``."""
+    from mash_tpu_torch.ops import hash_kernel as hk
+    from mash_tpu_torch.ops import kmers
+
+    h, v = hk.hash_windows(x, **kw)
+    hp, vp = kmers.hash_chunk_plain(x, **kw)
+    assert h.shape == hp.shape
+    assert torch.equal(h, hp) and torch.equal(v, vp)
+    return v
+
+
+@pytest.mark.parametrize("k", [1, 8, 9, 21, 32])
+def test_hash_windows_run_and_tile_edges(gpu, k):
+    """Rows of k, k + R - 1 and k + R bytes (one thread's run of windows,
+    short, full and one over) and of a tile - 1, a tile and a tile + 1
+    windows, in every mode."""
+    for extra in (0, K5_R - 1, K5_R, K5_TILE - 2, K5_TILE - 1, K5_TILE):
+        x = torch.from_numpy(_seq_rare(k + extra, b"ACGTacgt",
+                                       b"N\x00\xc8", (3, k + extra))).to(gpu)
+        for use64, noncanon, preserve in ((True, False, False),
+                                          (False, True, False),
+                                          (True, False, True)):
+            _k5_equal(x, alphabet=DNA, k=k, seed=42, use64=use64,
+                      noncanonical=noncanon, preserve_case=preserve)
+
+
+def test_hash_windows_unaligned_rows_and_outputs(gpu):
+    """Odd L puts every row base and output offset off alignment; a view
+    one byte into its storage moves the first row's base too."""
+    base = torch.from_numpy(_seq_rare(3, b"ACGTacgt", b"N\x00",
+                                      (7 * 4099 + 1,))).to(gpu)
+    kw = dict(alphabet=DNA, k=21, seed=42, use64=True, noncanonical=False,
+              preserve_case=False)
+    for off in range(1, 4):
+        x = base[off:off + 7 * 4097].view(7, 4097)
+        assert x.data_ptr() % 16 == off
+        _k5_equal(x, **kw)
+
+
+def test_hash_windows_invalid_at_run_edges(gpu):
+    """A non-alphabet byte at the first byte of every thread's run, and one
+    at the last byte of every run, in the second row."""
+    seq = _seq(5, b"ACGTacgt", (2, 3 * K5_TILE + 37))
+    seq[0, ::K5_R] = ord("N")
+    seq[1, K5_R - 1::K5_R] = 0x80
+    x = torch.from_numpy(seq).to(gpu)
+    for k in (1, 9, 21, 32):
+        for preserve in (False, True):
+            v = _k5_equal(x, alphabet=DNA, k=k, seed=42, use64=True,
+                          noncanonical=False, preserve_case=preserve)
+            if k < K5_R - 1:
+                assert bool(v.any())
+
+
+def test_hash_windows_palindromes_k20(gpu):
+    """Reverse-complement palindromes of 20 bytes: every such window ties,
+    and the tie takes the forward strand."""
+    rng = np.random.default_rng(20)
+    half = rng.choice(np.frombuffer(b"ACGT", dtype=np.uint8), size=(500, 10))
+    comp = np.zeros(256, dtype=np.uint8)
+    comp[list(b"ACGT")] = list(b"TGCA")
+    seq = np.concatenate([half, comp[half[:, ::-1]]], axis=1).reshape(1, -1)
+    x = torch.from_numpy(seq).to(gpu)
+    for use64 in (True, False):
+        v = _k5_equal(x, alphabet=DNA, k=20, seed=42, use64=use64,
+                      noncanonical=False, preserve_case=False)
+        assert bool(v.all())
+
+
+def test_hash_windows_many_short_rows(gpu):
+    """More than 65 535 rows, each shorter than a tile."""
+    x = torch.from_numpy(_seq_rare(70, b"ACGTacgt", b"N",
+                                   (70_000, 37))).to(gpu)
+    _k5_equal(x, alphabet=DNA, k=21, seed=42, use64=True,
+              noncanonical=False, preserve_case=False)
+
+
 def _sketches(rng, n, s, universe, bits=64, full=False):
     H = np.full((n, s), EMPTY)
     N = np.zeros(n, np.int32)

@@ -253,3 +253,51 @@ def test_stale_counts_shared_headers(tmp_path, monkeypatch):
     assert not cuda_build._stale("k")
     _touch(csrc / "k.cu", 5000)
     assert cuda_build._stale("k")
+
+
+@pytest.mark.parametrize("alpha", ["dna", "protein", "raw"])
+def test_tables_are_the_luts_built_once(alpha, monkeypatch):
+    """``_tables`` holds ``alphabet_lut``/``complement_lut``'s tables of an
+    alphabet, read-only, and builds them once an alphabet."""
+    alphabet = {"dna": DNA, "protein": _protein_alpha(), "raw": ()}[alpha]
+    calls = []
+    real = hash_kernel.alphabet_lut
+
+    def counted(a):
+        calls.append(a)
+        return real(a)
+
+    monkeypatch.setattr(hash_kernel, "alphabet_lut", counted)
+    hash_kernel._tables.cache_clear()
+    try:
+        alut, clut = hash_kernel._tables(alphabet)
+        np.testing.assert_array_equal(alut, tk.alphabet_lut(alphabet))
+        np.testing.assert_array_equal(clut, tk.complement_lut(alphabet))
+        assert not alut.flags.writeable and not clut.flags.writeable
+        again = hash_kernel._tables(tuple(alphabet))
+        assert again[0] is alut and again[1] is clut
+        assert calls == [alphabet]
+    finally:
+        hash_kernel._tables.cache_clear()
+
+
+def test_launcher_binds_once(monkeypatch):
+    """The kernel's C entry is loaded and bound once a process."""
+    loads = []
+
+    def entry(*_a):
+        return 0
+
+    def load(name):
+        loads.append(name)
+        return types.SimpleNamespace(hash_windows_launch=entry)
+
+    monkeypatch.setattr(cuda_build, "load", load)
+    hash_kernel._launcher.cache_clear()
+    try:
+        fn = hash_kernel._launcher()
+        assert hash_kernel._launcher() is fn is entry
+        assert loads == ["hash_windows"]
+        assert len(fn.argtypes) == 13 and fn.restype is not None
+    finally:
+        hash_kernel._launcher.cache_clear()
