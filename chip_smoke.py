@@ -11,8 +11,8 @@ CUDA toolkit:
 Phases (any failure exits non-zero before the result lines):
 
 1. device: the card's name and power limit;
-2. build: the CUDA kernels (one nvcc per source, in parallel) and the
-   native parser library;
+2. build: the CUDA kernels (one nvcc per source, in parallel: K1-K6) and
+   the native parser library;
 3. kernels: each kernel at the main path's shapes against its plain
    PyTorch version on the same inputs (exact equality: every output is an
    integer; the DB table by what it holds, since the atomic inserts
@@ -38,6 +38,14 @@ Phases (any failure exits non-zero before the result lines):
    ``cuobjdump``, its registers and the blocks an SM holds), and on the
    1 MiB rows, where CUDA events time the host's dispatch, the device
    time a launch (``torch.profiler``) and the registers a thread;
+   ``fold_sorted`` (K6) on K1's candidates with the certificate (one
+   genome file's rows, s = 5000, and the ``sketch -i`` buckets), on the
+   state merges of ``sketch`` (6 x 1000), ``screen`` (33 x 1000) and a
+   ``-s 100000`` sketch (33 x 100 000), and on the sorted 1 MiB rows of a
+   recompute (a file's tail row, a full row), each with the device time a
+   launch; then one genome file's device work beside K1 (its batch's
+   unpacking, its tail row's recompute, its batch's fold into the state),
+   each beside its plain version;
 4. end to end through ``mash_tpu_torch.__main__.main``: ``sketch`` of 64
    synthetic 4 Mibase genomes, ``dist`` of those 64 sketches (4096 pairs,
    the 64-bit kernel) and of 1024 sketches with controlled overlap
@@ -88,8 +96,8 @@ Phases (any failure exits non-zero before the result lines):
    equal phase 6's bytes, the stripes (512 rows, alternate ranks) in
    stripe order the single process's stdout, and rank 0's ``screen``,
    ``taxscreen``, ``within`` and ``find`` stdout the single process's,
-   rank 1's empty; K1, K3, K4 and the window hash must launch on both
-   ranks.  Each command
+   rank 1's empty; K1, K3, K4, the window hash and the fold (K6) must
+   launch on both ranks.  Each command
    prints both ranks' walls beside the single process's (two ranks on one
    card check the assembly rules; they are no scaling figure).  Then
    ``parallel.mesh``'s ``sharded_sketch_chunks`` ([32, 1 MiB]),
@@ -114,14 +122,16 @@ Every kernel's launch count is reset just before each main-path command
 of phases 4 to 9 and read just after it; the kernels that command runs
 must have launched, and no ``torch.sort`` call of the screen counter may
 be left on the screen commands' path.  No main-path command, in one
-process or in a rank, may hash on the card with the plain
-``hash_chunk_plain`` (a counter of its calls with a CUDA tensor must read
-0).  Each main-path command prints one
+process or in a rank, may hash or fold on the card with the plain
+``hash_chunk_plain`` or ``_fold_sorted`` (under K6's twins): counters of
+their calls with a CUDA tensor (``plain_hash_on_card``,
+``plain_fold_on_card``) must read 0.  Each main-path command prints one
 JSON line with its wall seconds and the wall seconds of its stages
 (``mash_tpu_torch.utils.stage``); with ``--profile`` the line also holds
 the share of that wall time in which the card ran a kernel
 (``torch.profiler``, CUDA activity only), the kernels that took most of
-it, and the device time grouped by kernel family (by kernel name); with
+it, the elementwise kernels that took most, and the device time grouped
+by kernel family (by kernel name); with
 ``--host-profile`` it holds the ten host functions (``cProfile``) with the
 most time of their own.
 
@@ -333,6 +343,7 @@ def device_profile(fn):
 # (the folds and certificates) and copies.
 KERNEL_FAMILIES = (
     ("hash_windows", ("hash_windows",)),
+    ("fold_sorted", ("fold_sorted",)),
     ("screen_count", ("screen_count",)),
     ("screen_table", ("screen_table",)),
     ("sketch_select", ("sketch_select",)),
@@ -344,14 +355,18 @@ KERNEL_FAMILIES = (
 )
 
 
+def kernel_family(name: str) -> str:
+    """A kernel name's family (``KERNEL_FAMILIES``, else "other")."""
+    low = name.lower()
+    return next((f for f, keys in KERNEL_FAMILIES
+                 if any(k in low for k in keys)), "other")
+
+
 def kernel_families(per_name: dict) -> dict:
-    """Device seconds by kernel family (``KERNEL_FAMILIES``, else
-    "other")."""
+    """Device seconds by kernel family."""
     out: dict = {}
     for name, secs in per_name.items():
-        low = name.lower()
-        fam = next((f for f, keys in KERNEL_FAMILIES
-                    if any(k in low for k in keys)), "other")
+        fam = kernel_family(name)
         out[fam] = out.get(fam, 0.0) + secs
     return out
 
@@ -368,7 +383,7 @@ def timed_cli(name, argv, env, profile, extra=None, stderr=None):
 
     pop_stage_totals()
     torch.cuda.synchronize()
-    PLAIN_ON_CARD["hash_chunk_plain"] = 0
+    reset_plain_on_card()
     line = {"command": name}
     if profile == "host":
         import cProfile
@@ -387,8 +402,12 @@ def timed_cli(name, argv, env, profile, extra=None, stderr=None):
         out, wall, busy, per_name = device_profile(
             lambda: run_cli(argv, env, stderr))
         top = sorted(per_name.items(), key=lambda kv: -kv[1])[:8]
+        elementwise = sorted(
+            ((n, t) for n, t in per_name.items()
+             if kernel_family(n) == "elementwise"), key=lambda kv: -kv[1])
         line.update(device_busy_s=busy, device_busy_share=busy / wall,
                     top_kernels_s=dict(top),
+                    top_elementwise_s=dict(elementwise[:10]),
                     kernel_families_s=kernel_families(per_name))
     else:
         t0 = time.perf_counter()
@@ -400,9 +419,12 @@ def timed_cli(name, argv, env, profile, extra=None, stderr=None):
     stable = out.replace(os.path.dirname(argv[-1]) + os.sep, "")
     line.update(wall_s=wall, stages_s=pop_stage_totals(),
                 stdout_sha256=hashlib.sha256(stable.encode()).hexdigest(),
-                plain_hash_on_card=PLAIN_ON_CARD["hash_chunk_plain"])
+                plain_hash_on_card=PLAIN_ON_CARD["hash_chunk_plain"],
+                plain_fold_on_card=PLAIN_ON_CARD["_fold_sorted"])
     require(line["plain_hash_on_card"] == 0, "%s hashed on the card with "
             "the plain pass %d times" % (name, line["plain_hash_on_card"]))
+    require(line["plain_fold_on_card"] == 0, "%s folded on the card with "
+            "the plain fold %d times" % (name, line["plain_fold_on_card"]))
     if extra is not None:
         line.update(extra(wall))
     print(json.dumps(line), flush=True)
@@ -521,9 +543,10 @@ def write_genomes(rng, folder: str):
 # -- phases ---------------------------------------------------------------
 
 def sketch_select_case(report, chunks, k, use64, s, main, hash_instr,
-                       launches_from=None):
+                       launches_from=None, fold=False):
     """``sketch_select`` and ``sketch_chunks_fused`` on ``chunks`` against
-    their plain versions, timed, with the kernel's bound."""
+    their plain versions, timed, with the kernel's bound; with ``fold``,
+    K6's fold of the candidates (``fold_candidates``) too."""
     import torch
 
     from mash_tpu_torch.ops import sketch_kernel
@@ -559,6 +582,172 @@ def sketch_select_case(report, chunks, k, use64, s, main, hash_instr,
         % (rows, length, k, use64, m), max_abs_err=err, kernel_ms=ms,
         plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
         library_ms=None, main=main, launches_from=launches_from))
+    if fold:
+        from mash_tpu_torch.ops import fold_kernel
+
+        cand, boundary, vcount = got
+        R = cand.shape[0] // rows
+        fold_case(
+            report, "candidates [%d, %d x %d], s=%d" % (rows, R, m, s),
+            lambda: fold_kernel.fold_candidates(cand, boundary, vcount, rows,
+                                                s),
+            lambda: fold_kernel.fold_candidates_plain(cand, boundary, vcount,
+                                                      rows, s),
+            8 * cand.numel() + 12 * boundary.numel() + (16 * s + 1) * rows,
+            cand.numel(), main, launches_from)
+
+
+def fold_case(report, shape, run, plain, nbytes, entries, main,
+              launches_from=None):
+    """K6 (``run``) against its twin (``plain``) on the same CUDA tensors
+    (exact equality, the ``bad`` mask included), timed with CUDA events
+    (which time the host's dispatch where it is the longer), with the
+    device time a launch (``torch.profiler`` over 20 launches) and the
+    bound of the ``nbytes`` it must move (a 64-bit compare, two 32-bit
+    instructions, for each of its ``entries``)."""
+    import torch
+
+    got, want = run(), plain()
+    torch.cuda.synchronize()
+    err = max_abs_err(got, want)
+    require(err == 0.0, "fold_sorted %s disagrees" % shape)
+    ms, plain_ms = cuda_ms(run), cuda_ms(plain)
+    bound_ms, bound_by = bound(nbytes, 2 * entries)
+    report.append(dict(
+        name="fold_sorted", shape=shape, max_abs_err=err, kernel_ms=ms,
+        plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+        library_ms=None, main=main, launches_from=launches_from,
+        device_ms_a_launch=device_ms(run, "fold_sorted"),
+        plain_device_ms=device_ms(plain)))
+
+
+def device_ms(fn, kernel=None, n=20) -> float:
+    """Device milliseconds a call of ``fn`` (``torch.profiler`` over ``n``
+    calls): of the kernels whose name holds ``kernel``, else of all."""
+    def calls():
+        for _ in range(n):
+            fn()
+
+    _, _, _, per_name = device_profile(calls)
+    return sum(t for name, t in per_name.items()
+               if kernel is None or kernel in name) * 1e3 / n
+
+
+def sorted_states(gen, rows: int, width: int):
+    """``(h, c)`` int64 ``[rows, width]`` random states on the card: each
+    row sorted in unsigned order, counts 1 to 3."""
+    import torch
+
+    from mash_tpu_torch.ops.sketch_ops import biased
+
+    h = biased(torch.sort(biased(random_i64(rows * width, gen)).view(
+        rows, width), dim=1).values)
+    c = torch.randint(1, 4, (rows, width), generator=gen, device="cuda")
+    return h.contiguous(), c
+
+
+def sorted_row_needs(hs, s: int):
+    """``(bytes, entries)`` that K6 must read and write, and the entries
+    it must compare, for the sorted rows ``hs`` ``[B, L]`` (G = 1): a
+    row's hashes and counts up to the end of its s-th run, or, when it
+    has fewer runs, its hashes up to its last run's start and all its
+    counts; 16 bytes a slot written."""
+    nbytes, entries = 16 * s * hs.shape[0], 0
+    for row in hs:
+        starts = (row[1:] != row[:-1]).nonzero().flatten() + 1
+        starts = [0] + starts.tolist()
+        if len(starts) > s:
+            nbytes += 16 * starts[s]
+            entries += starts[s]
+        else:
+            nbytes += 8 * (starts[-1] + 1) + 8 * row.numel()
+            entries += row.numel()
+    return nbytes, entries
+
+
+def fold_cases(rng, report, chunks, file_rows: int) -> None:
+    """K6 at the paths' state merges and sorted rows (its candidate folds
+    run in ``sketch_select_case``), then the sketch path's device work
+    beside K1 for one genome file, each item beside its plain version:
+    the unpacking of its packed batch, the recompute of its tail row and
+    the fold of its batch into the state."""
+    import torch
+
+    from mash_tpu_torch.core.engine import DEFAULT_CHUNK
+    from mash_tpu_torch.ops import fold_kernel, kmers, sketch_kernel
+    from mash_tpu_torch.ops import sketch_ops as so
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(int(rng.integers(2**31)))
+    # the state merges: sketch's batch (5 rows and the state), screen's
+    # (32 rows and the state), and a -s 100000 sketch's screen-sized merge
+    for rows, width, frm in ((file_rows + 1, S, None), (33, S, "screen"),
+                             (33, 100_000, None)):
+        h, c = sorted_states(gen, rows, width)
+        fold_case(
+            report, "merge %d x %d, s=%d" % (rows, width, width),
+            lambda: so.tree_merge(h, c, s=width),
+            lambda: fold_kernel.fold_sorted_plain(
+                h.view(-1), c.view(-1), width, segments=rows),
+            16 * h.numel() + 16 * width, h.numel(), False, frm)
+    # the recompute of a row without the certificate (G = 1, after its
+    # sort): a file's tail row (80 bytes of sequence, then the batch's
+    # zero padding: a few dozen valid windows) and a full row
+    kw = dict(alphabet=tuple(b"ACGT"), k=K, seed=42, use64=True,
+              noncanonical=False, preserve_case=False)
+    tail = torch.zeros((1, DEFAULT_CHUNK), dtype=torch.uint8, device=dev)
+    tail[0, :80] = torch.from_numpy(random_chunks(rng, 1, 80)[0]).to(dev)
+    full = torch.from_numpy(random_chunks(rng, 1, DEFAULT_CHUNK)).to(dev)
+    for name, row in (("tail row", tail), ("full row", full)):
+        h, v = kmers.hash_chunk(row, **kw)
+        hs, cs = so.sort_unsigned(torch.where(v, h, torch.full_like(
+            h, so.EMPTY)), v.long())
+        fold_case(
+            report, "recompute, %s [1, %d] sorted, s=%d"
+            % (name, hs.shape[1], S),
+            lambda: fold_kernel.fold_sorted(hs, cs, S),
+            lambda: fold_kernel.fold_sorted_plain(hs, cs, S),
+            *sorted_row_needs(hs, S), False, None)
+
+    # one genome file of the sketch path beside K1
+    packed = torch.randint(0, 256, (file_rows, DEFAULT_CHUNK // 4
+                                    + DEFAULT_CHUNK // 8),
+                           dtype=torch.uint8, device=dev, generator=gen)
+    rows = chunks[:file_rows].contiguous()
+    m = so.candidate_budget(S, sketch_kernel.C, DEFAULT_CHUNK - K + 1)
+    cand, boundary, vcount = sketch_kernel.sketch_select(rows, **kw, m=m)
+    st_h, st_c = sorted_states(gen, 1, S)
+
+    def recompute(fold):
+        h, v = kmers.hash_chunk(tail, **kw)
+        hs, cs = so.sort_unsigned(torch.where(v, h, torch.full_like(
+            h, so.EMPTY)), v.long())
+        return fold(hs, cs, S)
+
+    def batch(fold_cand, fold):
+        H, C, _ = fold_cand(cand, boundary, vcount, file_rows, S)
+        return fold(torch.cat([st_h, H]).view(-1),
+                    torch.cat([st_c, C]).view(-1), S,
+                    segments=file_rows + 1)
+
+    items = {
+        "unpack_chunks [%d, %d]" % tuple(packed.shape):
+            lambda: kmers.unpack_chunks(packed, DEFAULT_CHUNK),
+        "tail-row recompute (hash_windows, sort, fold_sorted)":
+            lambda: recompute(fold_kernel.fold_sorted),
+        "tail-row recompute, plain fold":
+            lambda: recompute(fold_kernel.fold_sorted_plain),
+        "batch fold (fold_candidates, tree_merge %d x %d)"
+        % (file_rows + 1, S):
+            lambda: batch(fold_kernel.fold_candidates,
+                          fold_kernel.fold_sorted),
+        "batch fold, plain":
+            lambda: batch(fold_kernel.fold_candidates_plain,
+                          fold_kernel.fold_sorted_plain),
+    }
+    print(json.dumps({"sketch_file_items": {
+        name: {"ms": cuda_ms(fn), "device_ms": device_ms(fn)}
+        for name, fn in items.items()}}), flush=True)
 
 
 def phase_kernels(rng, report, folder):
@@ -579,11 +768,12 @@ def phase_kernels(rng, report, folder):
     hash_instr = {k: hash_instructions(k, folder) for k in (K, 16)}
     print("MurmurHash3 32-bit integer instructions per window by pipe "
           "(sm_90a SASS): %s" % json.dumps(hash_instr), flush=True)
-    for k, use64, rows, s, main in (
-            (K, True, file_rows, S, True), (K, True, 32, S, False),
-            (16, False, 32, S, False), (K, True, file_rows, 5000, False)):
+    for k, use64, rows, s, main, fold in (
+            (K, True, file_rows, S, True, True),
+            (K, True, 32, S, False, False), (16, False, 32, S, False, False),
+            (K, True, file_rows, 5000, False, True)):
         sketch_select_case(report, full[:rows].contiguous(), k, use64, s,
-                           main, hash_instr)
+                           main, hash_instr, fold=fold)
 
     def pairs(hq, hr, sq, sr, fn, plain_fn, name, width_bytes, main,
               shape=None, other=None):
@@ -655,7 +845,7 @@ def phase_kernels(rng, report, folder):
     for bucket in (1 << 16, 1 << 18):
         rows = torch.from_numpy(random_chunks(child, 16, bucket)).to(dev)
         sketch_select_case(report, rows, K, True, S, False, hash_instr,
-                           launches_from="sketch_i")
+                           launches_from="sketch_i", fold=True)
     gen = torch.Generator(device=dev).manual_seed(int(rng.integers(2**31)))
     for H in SCREEN_H:
         screen_count_case(gen, H, H == SCREEN_H[0], report)
@@ -682,6 +872,9 @@ def phase_kernels(rng, report, folder):
                           noncanonical=True, preserve_case=True),
         hash_instr, False, "windowed raw piece [1 MiB] k=%d" % K,
         launches_from="sketch_w", one_row=True)
+    # K6 at the merges and sorted rows, from a fourth child generator
+    fold_cases(np.random.default_rng(rng.bit_generator.seed_seq.spawn(1)[0]),
+               report, full, file_rows)
     print("phase kernels: ok", flush=True)
 
 
@@ -971,6 +1164,7 @@ def sort_sizes():
 
 def _launch_counters():
     from mash_tpu_torch.ops import (
+        fold_kernel,
         hash_kernel,
         pairwise_kernel,
         screen_kernel,
@@ -978,32 +1172,44 @@ def _launch_counters():
     )
 
     return (sketch_kernel.LAUNCHES, pairwise_kernel.LAUNCHES,
-            screen_kernel.LAUNCHES, hash_kernel.LAUNCHES)
+            screen_kernel.LAUNCHES, hash_kernel.LAUNCHES,
+            fold_kernel.LAUNCHES)
 
 
-# calls of the plain hash pass with a CUDA tensor (count_plain_on_card)
-PLAIN_ON_CARD = {"hash_chunk_plain": 0}
+# calls with a CUDA tensor of the plain hash pass and of the plain fold,
+# which both of K6's twins run (count_plain_on_card)
+PLAIN_ON_CARD = {"hash_chunk_plain": 0, "_fold_sorted": 0}
 
 
 def count_plain_on_card() -> None:
-    """Wraps ``ops.kmers.hash_chunk_plain``, in every module of the package
-    that holds it, so that each call with a CUDA tensor adds one to
-    ``PLAIN_ON_CARD``: the card's path must hash through the kernel."""
+    """Wraps ``ops.kmers.hash_chunk_plain`` and ``ops.fold_kernel.
+    _fold_sorted`` (the plain fold under ``fold_sorted_plain`` and
+    ``fold_candidates_plain``), in every module of the package that holds
+    them, so that each call with a CUDA tensor adds one to
+    ``PLAIN_ON_CARD``: the card's path must hash and fold through the
+    kernels."""
     from mash_tpu_torch.commands import command_registry
-    from mash_tpu_torch.ops import kmers
+    from mash_tpu_torch.ops import fold_kernel, kmers
 
-    command_registry()  # every module that may hold the name, first
-    real = kmers.hash_chunk_plain
+    command_registry()  # every module that may hold the names, first
+    for owner, fn in ((kmers, "hash_chunk_plain"),
+                      (fold_kernel, "_fold_sorted")):
+        real = getattr(owner, fn)
 
-    def counted(seq, **kw):
-        if seq.device.type == "cuda":
-            PLAIN_ON_CARD["hash_chunk_plain"] += 1
-        return real(seq, **kw)
+        def counted(x, *args, _real=real, _fn=fn, **kw):
+            if x.device.type == "cuda":
+                PLAIN_ON_CARD[_fn] += 1
+            return _real(x, *args, **kw)
 
-    for name, mod in list(sys.modules.items()):
-        if (name.split(".")[0] == "mash_tpu_torch"
-                and getattr(mod, "hash_chunk_plain", None) is real):
-            setattr(mod, "hash_chunk_plain", counted)
+        for name, mod in list(sys.modules.items()):
+            if (name.split(".")[0] == "mash_tpu_torch"
+                    and getattr(mod, fn, None) is real):
+                setattr(mod, fn, counted)
+
+
+def reset_plain_on_card() -> None:
+    for name in PLAIN_ON_CARD:
+        PLAIN_ON_CARD[name] = 0
 
 
 def reset_launches() -> None:
@@ -1024,7 +1230,7 @@ def phase_end_to_end(rng, folder, profile=None):
     from mash_tpu_torch.core.params import default_nucleotide_params
     from mash_tpu_torch.core.sketch import SketchRef
     from mash_tpu_torch.io import capnp_msh
-    from mash_tpu_torch.ops import pairwise_kernel, sketch_kernel
+    from mash_tpu_torch.ops import fold_kernel, pairwise_kernel, sketch_kernel
 
     t0 = time.perf_counter()
     paths = write_genomes(rng, folder)
@@ -1050,6 +1256,8 @@ def phase_end_to_end(rng, folder, profile=None):
     bases = N_GENOMES * GENOME_LEN
     require(sketch_kernel.LAUNCHES["sketch_select"] > 0,
             "sketch did not launch sketch_select")
+    require(fold_kernel.LAUNCHES["fold_sorted"] > 0,
+            "sketch did not launch fold_sorted")
     print("sketch: %d bases in %.3f s = %.4g bases/s"
           % (bases, t_sketch, bases / t_sketch), flush=True)
 
@@ -1156,7 +1364,8 @@ def phase_screen(rng, folder, paths, all_msh, profile=None):
         counts = {}
         with sort_sizes() as sorts:
             out, line = counted_cli(
-                name, argv, ("screen_table", "screen_count", "hash_windows"),
+                name, argv, ("screen_table", "screen_count", "hash_windows",
+                             "fold_sorted"),
                 profile, counts,
                 lambda w: {"bases": bases, "bases_per_s": bases / w})
         require(not any(m.startswith("mash_tpu_torch.ops.screen_")
@@ -1348,7 +1557,8 @@ def phase_reads(rng, folder, paths, all_msh, cmd_launches,
     reads_msh = os.path.join(folder, "reads.msh")
     m2_msh = os.path.join(folder, "reads_m2.msh")
     _, err, _ = run("sketch_reads", ["sketch", "-r", "-o", reads_msh,
-                                     *reads], read_bases, ["sketch_select"])
+                                     *reads], read_bases,
+                      ["sketch_select", "fold_sorted"])
     print("sketch -r estimates: %s" % " | ".join(
         ln for ln in err.splitlines() if ln.startswith("Estimated")))
     _, err, line = run("sketch_reads_m2", ["sketch", "-r", "-m", "2", "-o",
@@ -1378,7 +1588,7 @@ def phase_reads(rng, folder, paths, all_msh, cmd_launches,
 
     plasmids_msh = os.path.join(folder, "plasmids.msh")
     run("sketch_i", ["sketch", "-i", "-o", plasmids_msh, plasmids],
-        plasmid_bases, ["sketch_select"])
+        plasmid_bases, ["sketch_select", "fold_sorted"])
     msh = capnp_msh.read_msh(plasmids_msh)
     require(len(msh.references) == N_FAMILIES * FAMILY_SIZE
             and all(len(r.hashes) and np.all(r.hashes[1:] > r.hashes[:-1])
@@ -1676,7 +1886,8 @@ def phase_windowed(folder, rng, paths, all_msh, plasmids_msh, cmd_launches,
 
     err = []
     out, _ = run("within_fasta", ["within", "-s", "10000", paths[0],
-                                  all_msh], ["sketch_select"], stderr=err)
+                                  all_msh], ["sketch_select", "fold_sorted"],
+                   stderr=err)
     score = {f[3]: float(f[0]) for f in
              (ln.split("\t") for ln in out.splitlines())}
     require(len(score) == N_GENOMES and score[paths[0]] == 1.0
@@ -1772,7 +1983,7 @@ def rank_worker(cfg_path: str) -> int:
     results = {}
     for name, argv in cfg["commands"]:
         reset_launches()
-        PLAIN_ON_CARD["hash_chunk_plain"] = 0
+        reset_plain_on_card()
         torch.cuda.synchronize()
         out, err = io.StringIO(), io.StringIO()
         t0 = time.perf_counter()
@@ -1788,7 +1999,8 @@ def rank_worker(cfg_path: str) -> int:
                 f.write(text)
         results[name] = {"wall_s": wall, "launches": read_launches(),
                          "plain_hash_on_card": PLAIN_ON_CARD[
-                             "hash_chunk_plain"]}
+                             "hash_chunk_plain"],
+                         "plain_fold_on_card": PLAIN_ON_CARD["_fold_sorted"]}
     with open(os.path.join(cfg["folder"], "rank%d.json" % rank), "w") as f:
         json.dump(results, f)
     return 0
@@ -1885,11 +2097,12 @@ def phase_ranks(folder, paths, all_msh, plasmids_msh, find_head):
         ["within_plasmids", ["within", "-e", "1", all_msh, plasmids_msh]],
         ["find_head", ["find", paths[0], find_head[0]]],
     ]
-    kernels = {"sketch_reads": ["sketch_select"],
+    kernels = {"sketch_reads": ["sketch_select", "fold_sorted"],
                "triangle_4096": ["pairwise32"], "dist_d": ["pairwise32"],
-               "screen": ["screen_table", "screen_count", "hash_windows"],
+               "screen": ["screen_table", "screen_count", "hash_windows",
+                          "fold_sorted"],
                "taxscreen": ["screen_table", "screen_count",
-                             "hash_windows"]}
+                             "hash_windows", "fold_sorted"]}
     t0 = time.perf_counter()
     results = run_ranks(folder, commands)
     print("phase ranks: %d ranks ran %d commands in %.1f s (startup "
@@ -1899,6 +2112,9 @@ def phase_ranks(folder, paths, all_msh, plasmids_msh, find_head):
         for rank in range(RANKS):
             require(results[rank][name]["plain_hash_on_card"] == 0,
                     "rank %d's %s hashed on the card with the plain pass"
+                    % (rank, name))
+            require(results[rank][name]["plain_fold_on_card"] == 0,
+                    "rank %d's %s folded on the card with the plain fold"
                     % (rank, name))
             for kernel in kernels.get(name, ()):
                 require(results[rank][name]["launches"][kernel] > 0,
@@ -1912,6 +2128,8 @@ def phase_ranks(folder, paths, all_msh, plasmids_msh, find_head):
             "single_wall_s": single["wall_s"],
             "rank_launches": [r[name]["launches"] for r in results],
             "rank_plain_hash_on_card": [r[name]["plain_hash_on_card"]
+                                        for r in results],
+            "rank_plain_fold_on_card": [r[name]["plain_fold_on_card"]
                                         for r in results]}),
             flush=True)
     with open(pooled, "rb") as a, open(os.path.join(folder, "reads.msh"),
@@ -1981,9 +2199,11 @@ def phase_mesh(rng, folder, paths):
         t_single = time.perf_counter() - t0
         require(equal(got, want), "%s on %s differs from one device's"
                 % (name, shape))
-        for kernel, n in kernels.items():
-            require(launches[kernel] == n, "%s on %s launched %s %d times, "
-                    "not %d" % (name, shape, kernel, launches[kernel], n))
+        for kernel, n in kernels.items():  # n None: at least once
+            require(launches[kernel] == n if n is not None
+                    else launches[kernel] > 0, "%s on %s launched %s %d "
+                    "times, not %s" % (name, shape, kernel, launches[kernel],
+                                       n or "once or more"))
         print(json.dumps({"mesh": name, "devices": list(MESH_DEVICES),
                           "shape": shape, "equal": True,
                           "sharded_s": t_sharded, "single_s": t_single,
@@ -1999,7 +2219,7 @@ def phase_mesh(rng, folder, paths):
           lambda: mesh.sharded_sketch_chunks(devices, params, chunks, S),
           lambda: sketch_ops.tree_merge(*sketch_chunks_fused(chunks, **kw,
                                                              s=S), s=S),
-          {"sketch_select": 2}, same)
+          {"sketch_select": 2, "fold_sorted": 5}, same)
     for n in (64, 1024):
         H, N = distance._upload(*distance.pad_sketches(
             list(overlap_sketches(rng, n, S)), S), devices[0])
@@ -2029,7 +2249,7 @@ def phase_mesh(rng, folder, paths):
           "ranges" % (list(batch.shape), len(db), len(devices)),
           lambda: mesh.sharded_screen_counts(devices, params, db, [batch], S),
           one_device, {"screen_table": 2, "screen_count": 2,
-                       "hash_windows": 2}, same_counts)
+                       "hash_windows": 2, "fold_sorted": None}, same_counts)
     pop_stage_totals()  # the one-device fold's stage: no command's
     print("phase mesh: ok in %.1f s" % (time.perf_counter() - t_phase),
           flush=True)
@@ -2338,7 +2558,7 @@ def main(argv=None) -> int:
 
     t0 = time.perf_counter()
     cuda_build.build(["sketch_select", "pairwise", "screen_count",
-                      "hash_windows"])
+                      "hash_windows", "fold_sorted"])
     require(native.load_library() is not None, "native library build")
     print("phase build: ok in %.1f s" % (time.perf_counter() - t0),
           flush=True)
@@ -2351,7 +2571,7 @@ def main(argv=None) -> int:
         launches, paths, all_msh = phase_end_to_end(rng, folder, args.profile)
         screen_launches = phase_screen(rng, folder, paths, all_msh,
                                        args.profile)
-        cmd_launches = {}
+        cmd_launches = {"screen": screen_launches}
         plasmids_msh = phase_reads(rng, folder, paths, all_msh, cmd_launches,
                                    args.profile)
         phase_triangle(report, folder, paths, all_msh, plasmids_msh,
@@ -2381,6 +2601,10 @@ def main(argv=None) -> int:
         # a jax.jit function that XLA fuses, not a Pallas kernel
         "hash_windows": ("mash_tpu_torch/ops/csrc/hash_windows.cu",
                          "mash_tpu/ops/kmers.py:129"),
+        # jax.jit functions that XLA fuses (_fold_sorted, merge_states,
+        # tree_merge, sketch_chunks_pallas' fold tail), not a Pallas kernel
+        "fold_sorted": ("mash_tpu_torch/ops/csrc/fold_sorted.cu",
+                        "mash_tpu/ops/sketch_ops.py:52"),
     }
     kernels = []
     for r in report:

@@ -6,7 +6,8 @@ each C-window subrow, returns its m smallest hashes, the (m+1)-th as a
 boundary, and its valid-window count, so the full hash array never
 reaches device memory.  :func:`sketch_chunks_deferred` folds those
 candidates to bottom-s and checks an exactness certificate on the full
-64-bit boundary for each row, on the device; a row that fails it is
+64-bit boundary for each row, on the device, in one launch of the fold
+kernel (``ops.fold_kernel.fold_candidates``, K6); a row that fails it is
 recomputed from all its window hashes (``ops.kmers.hash_chunk``: the
 window hash kernel on the card) and a full sort, on the same device,
 once its mask has reached the host (at once in
@@ -26,6 +27,7 @@ import ctypes
 import torch
 
 from mash_tpu_torch.ops import cuda_build
+from mash_tpu_torch.ops.fold_kernel import fold_candidates
 from mash_tpu_torch.ops.kmers import (
     alphabet_lut,
     complement_lut,
@@ -35,13 +37,10 @@ from mash_tpu_torch.ops.kmers import (
 from mash_tpu_torch.ops.sketch_ops import (
     EMPTY,
     Uncertified,
-    _fold_sorted,
     biased,
     candidate_budget,
-    empty_rows,
     sketch_chunk,
     sketch_chunk_batch,
-    sort_unsigned,
 )
 
 C = 2048  # windows per subrow: one CUDA block
@@ -208,24 +207,9 @@ def sketch_chunks_deferred(
         chunks, alphabet=alphabet, k=k, seed=seed, use64=use64,
         noncanonical=noncanonical, preserve_case=preserve_case, m=m,
     )
-    R = cand.shape[0] // B
-    ch = cand.view(B, R * m)
-    cand_v = ch != EMPTY
-    ch, cc = sort_unsigned(ch, cand_v.long())
-    Hf, Cf = _fold_sorted(ch, cc, s)
-
-    # Certificate: a hash not extracted from its subrow is >= that
-    # subrow's boundary, so X (the s-th kept value) strictly below every
-    # boundary proves every occurrence <= X was captured; equal valid
-    # counts prove the all-captured case.  A file's short tail row (fewer
-    # valid windows than s, more than m in a subrow) is the usual row
-    # without it; the rest of its batch stays exact.
-    ndist = (Cf > 0).sum(dim=1)
-    minb = biased(boundary.view(B, R)).min(dim=1).values
-    covered = (ndist >= s) & (biased(Hf[:, s - 1]) < minb)
-    all_in = vcount.view(B, R).sum(dim=1) == cand_v.sum(dim=1)
-    bad = ~(covered | all_in)
-    Hf, Cf = empty_rows(Hf, Cf, bad)
+    # the fold and its certificate: one K6 launch on the card
+    # (fold_kernel.fold_candidates)
+    Hf, Cf, bad = fold_candidates(cand, boundary, vcount, B, s)
     return Hf, Cf, Uncertified(chunks, bad, plain)
 
 

@@ -6,10 +6,12 @@ hash map (``src/mash/MinHashHeap.cpp:68-146``).  Selecting the bottom s
 distinct values is associative and commutative, so here it becomes:
 
   per chunk:     sort -> run-detect -> first s distinct (+ summed counts)
-  across chunks: merge two states by concat -> sort -> re-dedupe
+  across chunks: fold the states as sorted segments of one row
 
 Counts are total occurrence counts of each surviving hash
-(order-independent), exactly as in ``mash_tpu``.
+(order-independent), exactly as in ``mash_tpu``.  The fold of sorted
+rows and segments is ``ops.fold_kernel.fold_sorted``: the kernel K6 on a
+CUDA tensor, the plain sort and scatter on a CPU tensor.
 
 State representation: ``(hashes[s], counts[s])``, both int64.  Hashes
 are uint64 bit patterns sorted in *unsigned* order; empty slots have
@@ -23,19 +25,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-EMPTY = -1  # 2^64-1 as an int64 bit pattern
-SIGN = -(2**63)  # XOR with this maps unsigned order onto signed order
-
-
-def biased(x: torch.Tensor) -> torch.Tensor:
-    """int64 bit patterns -> int64 whose signed order is unsigned order."""
-    return x ^ SIGN
-
-
-def sort_unsigned(h: torch.Tensor, c: torch.Tensor, dim: int = -1):
-    """Sort ``(h, c)`` along ``dim`` by h in unsigned order."""
-    _, order = torch.sort(biased(h), dim=dim)
-    return h.gather(dim, order), c.gather(dim, order)
+from mash_tpu_torch.ops.fold_kernel import (
+    EMPTY,
+    biased,
+    empty_rows,
+    fold_sorted,
+    sort_unsigned,
+)
 
 
 def empty_state(s: int, device="cpu"):
@@ -44,36 +40,6 @@ def empty_state(s: int, device="cpu"):
         torch.full((s,), EMPTY, dtype=torch.int64, device=device),
         torch.zeros((s,), dtype=torch.int64, device=device),
     )
-
-
-def _fold_sorted(hs: torch.Tensor, cs: torch.Tensor, s: int):
-    """Bottom-s distinct (+summed counts) of unsigned-ascending rows.
-
-    Args:
-      hs: int64 ``[..., L]`` ascending in unsigned order; entries with
-        ``cs == 0`` are ignored (they must have been mapped to ``EMPTY``
-        so they sort last).
-      cs: int64 ``[..., L]`` counts aligned with ``hs``.
-      s: sketch size.
-
-    Returns:
-      ``(H[..., s], C[..., s])`` states.
-    """
-    L = hs.shape[-1]
-    is_new = torch.ones_like(hs, dtype=torch.bool)
-    is_new[..., 1:] = hs[..., 1:] != hs[..., :-1]
-    run = torch.cumsum(is_new, dim=-1) - 1  # run index of each element
-    width = max(L, s)
-    shape = hs.shape[:-1] + (width,)
-    C = torch.zeros(shape, dtype=torch.int64, device=hs.device)
-    C.scatter_add_(-1, run, cs)
-    H = torch.full(shape, EMPTY, dtype=torch.int64, device=hs.device)
-    # every element of a run holds the same value: any writer wins
-    H.scatter_(-1, run, hs)
-    H = H[..., :s]
-    C = C[..., :s]
-    H = torch.where(C > 0, H, torch.full_like(H, EMPTY))
-    return H, C.clamp(min=0)
 
 
 def sketch_chunk(hashes: torch.Tensor, valid: torch.Tensor, *, s: int):
@@ -86,7 +52,7 @@ def sketch_chunk(hashes: torch.Tensor, valid: torch.Tensor, *, s: int):
     """
     h = torch.where(valid, hashes, torch.full_like(hashes, EMPTY))
     h, c = sort_unsigned(h, valid.long())
-    return _fold_sorted(h, c, s)
+    return fold_sorted(h, c, s)
 
 
 def candidate_budget(s: int, C: int, n: int) -> int:
@@ -176,7 +142,7 @@ def _topk_fold(hashes, valid, s, use64):
     cand_v = valid.gather(1, idx) & is_real
     ch = torch.where(cand_v, cand_h, torch.full_like(cand_h, EMPTY))
     ch, cc = sort_unsigned(ch, cand_v.long())
-    Hf, Cf = _fold_sorted(ch, cc, s)
+    Hf, Cf = fold_sorted(ch, cc, s)
 
     # Exactness proof per row:
     #  (a) every valid element is in the window, or
@@ -199,25 +165,20 @@ def _shr32(x: torch.Tensor) -> torch.Tensor:
 
 
 def merge_states(state_a, state_b, *, s: int):
-    """Merge two bottom-s states (associative + commutative)."""
+    """Merge two bottom-s states of one width (associative +
+    commutative): two sorted segments of one row."""
+    if state_a[0].shape != state_b[0].shape:
+        raise ValueError("merge_states takes two states of one width")
     h = torch.cat([state_a[0], state_b[0]])
     c = torch.cat([state_a[1], state_b[1]])
-    h, c = sort_unsigned(h, c)
-    return _fold_sorted(h, c, s)
+    return fold_sorted(h, c, s, segments=2)
 
 
 def tree_merge(states_h: torch.Tensor, states_c: torch.Tensor, *, s: int):
-    """Merge ``[B, s]`` stacked states into one state (one concat+sort)."""
-    h, c = sort_unsigned(states_h.reshape(-1), states_c.reshape(-1))
-    return _fold_sorted(h, c, s)
-
-
-def empty_rows(H: torch.Tensor, C: torch.Tensor, rows: torch.Tensor):
-    """``[B, s]`` states with the rows of the bool mask ``rows`` emptied
-    (EMPTY / 0), on the device: they then add nothing to a merge."""
-    keep = ~rows[:, None]
-    return (torch.where(keep, H, torch.full_like(H, EMPTY)),
-            torch.where(keep, C, torch.zeros_like(C)))
+    """Merge ``[B, w]`` stacked states into one state: one row of ``B``
+    sorted segments."""
+    return fold_sorted(states_h.reshape(-1), states_c.reshape(-1), s,
+                       segments=states_h.numel() // states_h.shape[-1])
 
 
 # -- the deferred certificate ----------------------------------------------

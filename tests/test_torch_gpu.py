@@ -1347,3 +1347,173 @@ def _engine_params(params, device, chunk_len):
     from mash_tpu_torch.core.engine import SketchEngine
 
     return SketchEngine(params, device=device, chunk_len=chunk_len)
+
+
+# -- K6 fold_sorted --------------------------------------------------------
+
+def _fold_rows(seed, B, G, W, *, empty=0.0, dup=0.0, realmax=0.0,
+               zero=0.0, hi=2**64 - 1):
+    """``(h, c)`` int64 ``[B, G * W]``: B rows of G segments of W entries,
+    each segment sorted in unsigned order, from a seed.  ``empty``: a
+    share of EMPTY / 0 entries; ``dup``: a share drawn from a pool of 64
+    hashes that every segment shares; ``realmax``: a share of real
+    2^64-1 hashes with a count above 0; ``zero``: a share of real hashes
+    whose count is 0; ``hi``: the largest hash."""
+    rng = np.random.default_rng(seed)
+    h = rng.integers(0, hi, (B, G, W), dtype=np.uint64, endpoint=True)
+    pool = rng.integers(0, hi, 64, dtype=np.uint64, endpoint=True)
+    pick = rng.random(h.shape) < dup
+    h[pick] = pool[rng.integers(0, 64, int(pick.sum()))]
+    c = rng.integers(1, 4, h.shape).astype(np.int64)
+    c[(rng.random(h.shape) < zero) & (h != EMPTY)] = 0
+    gone = rng.random(h.shape) < empty
+    h[gone], c[gone] = EMPTY, 0
+    real = rng.random(h.shape) < realmax
+    h[real], c[real] = EMPTY, 2
+    order = np.argsort(h, axis=2, kind="stable")
+    h = np.take_along_axis(h, order, 2).reshape(B, G * W)
+    c = np.take_along_axis(c, order, 2).reshape(B, G * W)
+    return torch.from_numpy(h.view(np.int64)), torch.from_numpy(c)
+
+
+# name: (rows, segments, width, s, edges); the first six are the shapes
+# of the paths (chip_smoke.py phase 3), the rest the kernel's edges
+FOLD_CASES = {
+    "sketch_merge": (1, 6, 1000, 1000, {"empty": 0.01}),
+    "screen_merge": (1, 33, 1000, 1000, {"dup": 0.3}),
+    "large_merge": (1, 33, 100_000, 100_000, {"empty": 0.001}),
+    "recompute_tail": (1, 1, 1_048_556, 1000, {"empty": 0.99997}),
+    "recompute_full": (1, 1, 1_048_556, 1000, {"empty": 0.01}),
+    "dup_across": (4, 9, 300, 500, {"dup": 0.5}),
+    "realmax": (3, 5, 200, 1200, {"realmax": 0.05, "empty": 0.2}),
+    "realmax_cut": (3, 5, 200, 100, {"realmax": 0.05, "empty": 0.2}),
+    "zero_counts": (3, 4, 128, 300, {"zero": 0.2, "empty": 0.1}),
+    "all_empty": (3, 3, 1000, 1000, {"empty": 1.0}),
+    "few_distinct": (3, 8, 40, 1000, {"dup": 0.9}),
+    "s1": (5, 7, 33, 1, {"dup": 0.3}),
+    "g1_runs": (4, 1, 50_000, 800, {"dup": 0.95, "empty": 0.02}),
+    "odd_width": (3, 13, 77, 150, {"empty": 0.1}),
+    "bits32": (3, 16, 512, 1000, {"hi": 2**32 - 1, "empty": 0.3}),
+    "rows_70000": (70_000, 2, 8, 10, {"dup": 0.2, "empty": 0.2}),
+    "width_0": (2, 1, 0, 5, {}),
+}
+
+
+@pytest.mark.parametrize("case", list(FOLD_CASES))
+def test_fold_sorted_matches_plain(gpu, case):
+    """K6 equals its twin bit for bit on the same CUDA tensors."""
+    from mash_tpu_torch.ops import fold_kernel as fk
+
+    B, G, W, s, edges = FOLD_CASES[case]
+    h, c = (t.to(gpu) for t in _fold_rows(list(FOLD_CASES).index(case), B,
+                                          G, W, **edges))
+    before = fk.LAUNCHES["fold_sorted"]
+    H, C = fk.fold_sorted(h, c, s, segments=G)
+    assert fk.LAUNCHES["fold_sorted"] == before + 1
+    want = fk.fold_sorted_plain(h, c, s, segments=G)
+    torch.cuda.synchronize()
+    assert torch.equal(H, want[0]) and torch.equal(C, want[1])
+
+
+# K1's candidates at the paths' shapes: rows, bytes a row, s
+CAND_CASES = {
+    "sketch": (5, 1 << 20, 1000),
+    "sketch_i_64k": (16, 1 << 16, 1000),
+    "sketch_i_256k": (16, 1 << 18, 1000),
+    "s5000": (5, 1 << 20, 5000),
+}
+
+
+@pytest.mark.parametrize("case", list(CAND_CASES))
+def test_fold_candidates_matches_plain(gpu, case):
+    """K6 with the certificate equals its twin on K1's candidates, states
+    and ``bad`` mask, with rows of a few valid windows (which fail it)."""
+    from mash_tpu_torch.ops import fold_kernel as fk
+
+    rows, length, s = CAND_CASES[case]
+    seq = _seq_rare(list(CAND_CASES).index(case) + 40, b"ACGTacgt", b"N",
+                    (rows, length))
+    seq[1, 3000:] = ord("N")  # a tail row: fewer valid windows than s
+    x = torch.from_numpy(seq).to(gpu)
+    m = sk.candidate_budget(s, sk.C, length - 20)
+    cand, boundary, vcount = sk.sketch_select(
+        x, alphabet=DNA, k=21, seed=42, use64=True, noncanonical=False,
+        preserve_case=False, m=m)
+    before = fk.LAUNCHES["fold_sorted"]
+    got = fk.fold_candidates(cand, boundary, vcount, rows, s)
+    assert fk.LAUNCHES["fold_sorted"] == before + 1
+    want = fk.fold_candidates_plain(cand, boundary, vcount, rows, s)
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert bool(want[2][1]) and not bool(want[2][0])
+
+
+def test_fold_candidates_certificate_clauses(gpu):
+    """Synthetic candidates whose rows pass by ``covered`` alone, by
+    ``all_in`` alone, by both, and fail: one whose K1 dropped a valid
+    2^64-1 (counted in vcount, absent from the candidates)."""
+    from mash_tpu_torch.ops import fold_kernel as fk
+
+    rng = np.random.default_rng(77)
+    rows, R, m, s = 8, 12, 16, 40
+    cand = np.sort(rng.integers(0, 2**63, (rows * R, m), dtype=np.uint64), 1)
+    bound = cand[:, -1] + rng.integers(1, 2**40, rows * R, dtype=np.uint64)
+    vcount = np.full(rows * R, m, np.int32)
+    vcount[R : 2 * R] += 1  # row 1: covered alone
+    bound[2 * R : 3 * R] = 1  # row 2: all_in alone
+    bound[3 * R : 4 * R] = 1  # row 3: neither
+    vcount[3 * R] += 3
+    cand[4 * R, -3:] = EMPTY  # row 4: a dropped 2^64-1, few hashes
+    vcount[4 * R] -= 2
+    cand[4 * R + 1 : 5 * R] = EMPTY
+    vcount[4 * R + 1 : 5 * R] = 0
+    bound[4 * R : 5 * R] = EMPTY
+    cand[5 * R : 6 * R, 3:] = EMPTY  # row 5: all captured, fewer than s
+    vcount[5 * R : 6 * R] = 3
+    t = [torch.from_numpy(a.view(np.int64) if a.dtype == np.uint64 else a)
+         .to(gpu) for a in (cand, bound, vcount)]
+    got = fk.fold_candidates(*t, rows, s)
+    want = fk.fold_candidates_plain(*t, rows, s)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert want[2].tolist() == [False, False, False, True, True, False,
+                                False, False]
+
+
+def test_fold_sorted_refusals_on_the_card(gpu):
+    """A CUDA tensor launches K6 or raises: never the plain fold."""
+    from mash_tpu_torch.ops import fold_kernel as fk
+
+    h = torch.zeros((2, 8), dtype=torch.int64, device=gpu)
+    before = fk.LAUNCHES["fold_sorted"]
+    with pytest.raises(ValueError):
+        fk.fold_sorted(h, h.cpu(), 4)
+    with pytest.raises(ValueError):
+        fk.fold_sorted(h[:, ::2], h[:, ::2], 4)
+    with pytest.raises(ValueError):
+        fk.fold_sorted(h.int(), h.int(), 4)
+    assert fk.LAUNCHES["fold_sorted"] == before
+
+
+def test_sketch_two_genomes_cuda_writes_cpu_msh(gpu, tmp_path, monkeypatch):
+    """``sketch`` of two genomes on the card (K1, K6's candidate fold and
+    merges, K6 for each file's tail row) writes the CPU's ``.msh``."""
+    from mash_tpu_torch.__main__ import main
+    from mash_tpu_torch.ops import fold_kernel as fk
+
+    files = []
+    for i in range(2):
+        seq = _seq(300 + i, b"ACGTACGTACGTacgtN", 2_500_000 + 7919 * i)
+        path = tmp_path / ("genome%d.fa" % i)
+        path.write_bytes(b">genome%d\n" % i + seq.tobytes() + b"\n")
+        files.append(str(path))
+    got = {}
+    before = fk.LAUNCHES["fold_sorted"]
+    for device in ("cuda", "cpu"):
+        monkeypatch.setenv("MASH_TPU_TORCH_DEVICE", device)
+        msh = tmp_path / ("two_%s.msh" % device)
+        with contextlib.redirect_stdout(io.StringIO()):
+            assert main(["sketch", "-o", str(msh), *files]) == 0
+        got[device] = msh.read_bytes()
+        if device == "cuda":
+            assert fk.LAUNCHES["fold_sorted"] > before
+    assert got["cuda"] == got["cpu"]
