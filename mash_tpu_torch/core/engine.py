@@ -43,7 +43,7 @@ from mash_tpu_torch.parallel.mesh import (
     sharded_sketch_chunks_async,
 )
 from mash_tpu_torch.utils import resolve_device, stage
-from mash_tpu_torch.utils.transfer import Readback, Uploader
+from mash_tpu_torch.utils.transfer import Readback, Uploader, to_host
 
 DEFAULT_CHUNK = 1 << 20
 # Per-record rows are padded to one of these lengths (``mash_tpu``'s
@@ -193,16 +193,18 @@ class SketchEngine:
         Each batch is dispatched as one upload and fold, so the host
         parses while the card works; nothing waits for the card but the
         previous batch's certificate mask, until the caller reads the
-        state.  The ``engine:fold_batch`` stage times the dispatch.
+        state.  The ``engine:fold_batch`` stage times the dispatch, the
+        ``engine:fold_batches`` stage the whole call.
         """
-        for arr in batches:
-            rows = arr.shape[0]
-            while rows > 1 and not arr[rows - 1].any():
-                rows -= 1
-            with stage("engine:fold_batch"):
-                state = self._fold_rows(
-                    state, self._upload(arr[:rows]),
-                    self.chunk_len if packed else None)
+        with stage("engine:fold_batches"):
+            for arr in batches:
+                rows = arr.shape[0]
+                while rows > 1 and not arr[rows - 1].any():
+                    rows -= 1
+                with stage("engine:fold_batch"):
+                    state = self._fold_rows(
+                        state, self._upload(arr[:rows]),
+                        self.chunk_len if packed else None)
         return state
 
     def sketch_seqs(self, seqs: Iterable[bytes]):
@@ -222,8 +224,10 @@ class SketchEngine:
     ) -> SketchRef:
         """Read a device state back into a host SketchRef (settling a
         ``PendingState`` first)."""
-        return _host_ref(state[0].cpu().numpy(), state[1].cpu().numpy(),
-                         name, comment, length)
+        with stage("engine:state_to_ref"):
+            h, c = state
+            return _host_ref(to_host(h).numpy(), to_host(c).numpy(),
+                             name, comment, length)
 
     def estimate_set_size(self, state) -> float:
         return sketch_ops.estimate_set_size(state, self.params.use64)

@@ -32,6 +32,7 @@ from mash_tpu_torch.ops.fold_kernel import (
     fold_sorted,
     sort_unsigned,
 )
+from mash_tpu_torch.utils.profiling import count
 
 
 def empty_state(s: int, device="cpu"):
@@ -218,6 +219,7 @@ class Uncertified:
         the batch; None when every row has it.  Waits for the mask's copy
         alone."""
         idx = np.flatnonzero(self.mask.numpy())
+        count("sketch:rows_recomputed", idx.size)
         if not idx.size:
             return None
         sel = torch.from_numpy(idx).to(self.rows.device, non_blocking=True)
@@ -285,6 +287,7 @@ def fold_batch(state, sh: torch.Tensor, sc: torch.Tensor, pending=(), *,
     skipped); the result is a :class:`PendingState` when any remain,
     else a plain ``(H, C)``.  No step reads the device.
     """
+    count("sketch:rows_folded", sh.shape[0])
     if isinstance(state, PendingState) and not state.settled():
         base, prev = state.raw, state.pending
     else:

@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from mash_tpu_torch.ops import sketch_ops
+from mash_tpu_torch.utils.transfer import to_host
 
 
 def default_mesh(n_devices: Optional[int] = None,
@@ -194,7 +195,7 @@ class ShardedScreenCounter:
         """The counts as uint32 numpy ``[H]``."""
         from mash_tpu_torch.ops.screen_ops import counts_from_totals
 
-        totals = torch.cat([c.totals.cpu() for c in self.counters])
+        totals = torch.cat([to_host(c.totals) for c in self.counters])
         return counts_from_totals(totals, self.big_db)
 
 

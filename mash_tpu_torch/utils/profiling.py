@@ -1,75 +1,195 @@
-"""Tracing and per-stage timing.
+"""Tracing, host spans and counters.
 
 Every CLI invocation can capture a PyTorch profiler trace and a
-per-stage wall-clock report:
+per-stage report:
 
 - ``MASH_TPU_TORCH_TRACE=<dir>``: write a Chrome trace of the whole
   command (host ops and, on a GPU, CUDA kernels) to
   ``<dir>/trace.json`` (view in ``chrome://tracing`` or Perfetto).
-- ``MASH_TPU_TORCH_TIMINGS=1``: print a per-stage wall-clock summary to
-  stderr at command exit.
+- ``MASH_TPU_TORCH_TIMINGS=1``: record the stages and counters below and
+  print them to stderr at command exit: each stage's wall time, its self
+  time (the wall time less what its child stages cover), its calls, and
+  each counter's total.
 
-Stages are annotated in library code with the :func:`stage` context
-manager, which is a no-op (one environment lookup) unless timing is
-enabled.  Device work is asynchronous, so a stage's wall clock covers
-what it enqueued and whatever it waited for, not its device time.
+Library code marks stages with :func:`stage` and counts with
+:func:`count`.  With timings off, ``stage`` hands back one shared no-op
+context and ``count`` returns at once.  With timings on, each stage adds
+to its name's totals and keeps a record: its name, its parent (the stage
+open around it on the same thread), and its start and end on
+``time.time_ns``, the clock of ``torch.profiler``'s events, so that a
+record lines up with a trace's kernels and idle gaps.  Each count keeps
+its time too.  Records stay in memory until :func:`pop_records`.
+
+Device work is asynchronous, so a stage's wall time covers what it
+enqueued and whatever it waited for, not its device time.  The stages
+named ``wait:*`` are the places where the host blocks on the card:
+
+- ``wait:upload_slot``: ``utils.transfer.Uploader`` waits for the copy
+  that last used a pinned slot;
+- ``wait:readback``: ``utils.transfer.Readback`` waits for its copy
+  (the certificate masks);
+- ``wait:to_host``: ``utils.transfer.to_host``, a blocking read-back
+  (a finished sketch, the screen's counts).
+
+The counters ``sketch:rows_folded`` (rows of per-row states folded into
+a sketch state) and ``sketch:rows_recomputed`` (rows without the
+certificate, recomputed on the plain path) count the certificate's
+misses.
 """
 
 from __future__ import annotations
 
 import atexit
 import contextlib
+import itertools
 import os
 import sys
+import threading
 import time
 from collections import defaultdict
+from typing import NamedTuple
 
 _TIMINGS_ENABLED = bool(os.environ.get("MASH_TPU_TORCH_TIMINGS"))
-_ACC: dict = defaultdict(lambda: [0.0, 0])
+# name -> [seconds, calls, self seconds]
+_ACC: dict = defaultdict(lambda: [0.0, 0, 0.0])
+# (serial, name, parent serial or -1, start_ns, end_ns) of each finished
+# stage, in the order they ended
+_RECORDS: list = []
+_COUNTS: list = []  # (name, n, at_ns)
+_LOCAL = threading.local()  # each thread's stack of open stages
+_SERIAL = itertools.count()
+_NULL = contextlib.nullcontext()
 _REPORT_REGISTERED = False
 
 
-def stage_report(out=None):
-    """Print accumulated per-stage timings (stderr by default)."""
-    out = out or sys.stderr
-    if not _ACC:
+class Span(NamedTuple):
+    """One finished stage: ``parent`` is the index of the enclosing
+    stage's record in the same :func:`pop_records` list, -1 where there
+    was none (or it was popped before)."""
+
+    name: str
+    parent: int
+    start_ns: int
+    end_ns: int
+
+
+class Count(NamedTuple):
+    name: str
+    n: int
+    at_ns: int
+
+
+class _Span:
+    __slots__ = ("name", "serial", "parent", "start", "child_ns")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        try:
+            stack = _LOCAL.stack
+        except AttributeError:
+            stack = _LOCAL.stack = []
+        self.parent = stack[-1].serial if stack else -1
+        self.serial = next(_SERIAL)
+        self.child_ns = 0
+        stack.append(self)
+        self.start = time.time_ns()
+        return self
+
+    def __exit__(self, *exc):
+        end = time.time_ns()
+        stack = _LOCAL.stack
+        stack.pop()
+        took = end - self.start
+        if stack:
+            stack[-1].child_ns += took
+        cell = _ACC[self.name]
+        cell[0] += took * 1e-9
+        cell[1] += 1
+        cell[2] += (took - self.child_ns) * 1e-9
+        # a tuple of atomic values, which the garbage collector stops
+        # tracking
+        _RECORDS.append((self.serial, self.name, self.parent, self.start,
+                         end))
+        return False
+
+
+def _register_report():
+    global _REPORT_REGISTERED
+    if not _REPORT_REGISTERED:
+        _REPORT_REGISTERED = True
+        atexit.register(stage_report)
+
+
+def stage(name: str):
+    """A context that times the named stage (a shared no-op when timings
+    are off)."""
+    if not _TIMINGS_ENABLED:
+        return _NULL
+    if not _REPORT_REGISTERED:
+        _register_report()
+    return _Span(name)
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to the named counter (nothing when timings are off)."""
+    if not _TIMINGS_ENABLED:
         return
-    width = max(len(k) for k in _ACC)
+    if not _REPORT_REGISTERED:
+        _register_report()
+    _COUNTS.append((name, n, time.time_ns()))
+
+
+def counter_totals(counts) -> dict:
+    """``{counter: total}`` of ``(name, n, at_ns)`` records."""
+    out: dict = {}
+    for name, n, _at in counts:
+        out[name] = out.get(name, 0) + n
+    return out
+
+
+def stage_report(out=None):
+    """Print the stages' totals, self times and calls, and the counters
+    not yet popped (stderr by default)."""
+    out = out or sys.stderr
+    totals = counter_totals(_COUNTS)
+    if not _ACC and not totals:
+        return
+    width = max(len(k) for k in list(_ACC) + list(totals))
     out.write("-- mash-tpu-torch stage timings --\n")
-    for name, (total, calls) in sorted(
+    for name, (total, calls, own) in sorted(
         _ACC.items(), key=lambda kv: -kv[1][0]
     ):
         out.write(
-            "%-*s  %9.3f s  (%d call%s)\n"
-            % (width, name, total, calls, "s" if calls != 1 else "")
+            "%-*s  %9.3f s  self %9.3f s  (%d call%s)\n"
+            % (width, name, total, own, calls, "s" if calls != 1 else "")
         )
+    for name, n in sorted(totals.items()):
+        out.write("%-*s  %d\n" % (width, name, n))
 
 
 def pop_stage_totals() -> dict:
     """``{stage: seconds}`` accumulated so far; starts the next count
     from zero (a caller timing several commands reads one at a time)."""
-    out = {name: total for name, (total, _) in _ACC.items()}
+    out = {name: total for name, (total, _, _) in _ACC.items()}
     _ACC.clear()
     return out
 
 
-@contextlib.contextmanager
-def stage(name: str):
-    """Accumulate wall-clock for a named stage (cheap when disabled)."""
-    global _REPORT_REGISTERED
-    if not _TIMINGS_ENABLED:
-        yield
-        return
-    if not _REPORT_REGISTERED:
-        _REPORT_REGISTERED = True
-        atexit.register(stage_report)
-    t0 = time.perf_counter()
-    try:
-        yield
-    finally:
-        cell = _ACC[name]
-        cell[0] += time.perf_counter() - t0
-        cell[1] += 1
+def pop_records():
+    """``(spans, counts)``: the :class:`Span` records of the stages that
+    ended and the :class:`Count` records made since the last call, which
+    are then cleared.  A stage still open is left out, and its children
+    name no parent."""
+    done = _RECORDS[:]
+    del _RECORDS[: len(done)]
+    counts = _COUNTS[:]
+    del _COUNTS[: len(counts)]
+    index = {r[0]: i for i, r in enumerate(done)}
+    spans = [Span(name, index.get(parent, -1), a, b)
+             for _serial, name, parent, a, b in done]
+    return spans, [Count(*c) for c in counts]
 
 
 @contextlib.contextmanager

@@ -10,6 +10,12 @@ keeps freed device tensors safe.
 
 - :class:`Uploader`: a ring of pinned buffers, one batch a slot.
 - :class:`Readback`: a device-to-host copy started now, read later.
+- :func:`to_host`: a blocking read-back, where the host needs the
+  answer now.
+
+Each place where the host blocks on the card is a ``wait:*`` stage
+(``utils.profiling``): ``wait:upload_slot``, ``wait:readback`` and
+``wait:to_host``.
 
 On the CPU both are identities: nothing is pinned (PyTorch cannot pin
 memory without CUDA) and nothing waits.  On CUDA a failure to pin raises;
@@ -20,6 +26,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from mash_tpu_torch.utils.profiling import stage
 
 
 class Uploader:
@@ -59,7 +67,8 @@ class Uploader:
         if self._events[i] is not None:
             # the copy that last read this slot must be done before the
             # slot is overwritten
-            self._events[i].synchronize()
+            with stage("wait:upload_slot"):
+                self._events[i].synchronize()
         nbytes = arr.nbytes
         buf = self._bufs[i]
         if buf is None or buf.numel() < nbytes:
@@ -100,5 +109,13 @@ class Readback:
 
     def numpy(self) -> np.ndarray:
         if self._event is not None:
-            self._event.synchronize()
+            with stage("wait:readback"):
+                self._event.synchronize()
         return self._host.numpy()
+
+
+def to_host(tensor: torch.Tensor) -> torch.Tensor:
+    """``tensor`` copied to host memory now: on a card the host waits for
+    everything queued before the copy (stage ``wait:to_host``)."""
+    with stage("wait:to_host"):
+        return tensor.cpu()
