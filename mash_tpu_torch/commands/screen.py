@@ -123,10 +123,9 @@ def stream_fold_fast(fold_rows, counts, state, files, k, params, device,
 
     The native pipeline's k-1-overlap rows count every k-mer window
     exactly once, as the record path's packing does, so counts and
-    cardinality are unchanged.  A batch's trailing all-zero rows (the
-    pipeline's padding of the last batch) hold no valid window and are
-    cut before the upload, which goes through pinned memory
-    (``utils.transfer.Uploader``) without waiting for the card.
+    cardinality are unchanged.  Each batch holds filled rows only and is
+    uploaded as given, through pinned memory (``utils.transfer.Uploader``)
+    without waiting for the card.
     """
     pack = 0
     if params.alphabet_string() == "ACGT":
@@ -137,10 +136,7 @@ def stream_fold_fast(fold_rows, counts, state, files, k, params, device,
     uploader = Uploader(device)
     try:
         for batch in pipe.batches():
-            rows = batch.shape[0]
-            while rows > 1 and not batch[rows - 1].any():
-                rows -= 1
-            dev = uploader.upload(batch[:rows])
+            dev = uploader.upload(batch)
             if pack:
                 dev = unpack_chunks(dev, chunk_len)
             counts, state = fold_rows(counts, state, dev)

@@ -182,28 +182,26 @@ class SketchEngine:
         return state
 
     def fold_batches(self, state, batches, packed: bool = False):
-        """Fold ready ``[batch_rows, W]`` host batches.
+        """Fold ready ``[rows, W]`` host batches, each uploaded as given.
 
         The fast-ingest counterpart of :meth:`fold_stream`: batches come
         pre-packed from :class:`mash_tpu_torch.io.ingest.IngestPipeline`
         (2-bit codes + validity mask when ``packed``) and are unpacked on
-        the device.  The pipeline pads a file's last batch with zero
-        rows, which hold no valid window; they are cut before the upload,
-        since eager PyTorch gains nothing from the fixed batch shape.
-        Each batch is dispatched as one upload and fold, so the host
-        parses while the card works; nothing waits for the card but the
-        previous batch's certificate mask, until the caller reads the
-        state.  The ``engine:fold_batch`` stage times the dispatch, the
-        ``engine:fold_batches`` stage the whole call.
+        the device.  The pipeline ships a file's last batch as its filled
+        rows only, so nothing here looks for padding.  A caller that
+        still pads with zero rows gets the same state, since a zero row
+        holds no valid window, packed or raw; it only pays for uploading
+        and folding them.  Each batch is dispatched as one upload and
+        fold, so the host parses while the card works; nothing waits for
+        the card but the previous batch's certificate mask, until the
+        caller reads the state.  The ``engine:fold_batch`` stage times the
+        dispatch, the ``engine:fold_batches`` stage the whole call.
         """
         with stage("engine:fold_batches"):
             for arr in batches:
-                rows = arr.shape[0]
-                while rows > 1 and not arr[rows - 1].any():
-                    rows -= 1
                 with stage("engine:fold_batch"):
                     state = self._fold_rows(
-                        state, self._upload(arr[:rows]),
+                        state, self._upload(arr),
                         self.chunk_len if packed else None)
         return state
 

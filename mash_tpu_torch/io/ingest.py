@@ -5,10 +5,12 @@ The replacement for the reference's I/O<->compute overlap
 ``src/mash/CommandScreen.cpp:155-270`` round-robin chunk streaming): a
 background thread reads raw file blocks, decompresses gzip, and runs the
 native C++ parser/packer (``native/mash_native.cpp`` ``mash_ingest_*``)
-to produce ready-to-upload ``[batch_rows, chunk_len]`` uint8 batches in
-the engine's chunk layout.  The main thread drains the bounded queue and
+to produce ready-to-upload ``[rows, chunk_len]`` uint8 batches in the
+engine's chunk layout.  The main thread drains the bounded queue and
 dispatches device uploads + folds, so parsing overlaps device work.
-A copy of ``mash_tpu.io.ingest`` with the imports renamed.
+``mash_tpu.io.ingest`` with the imports renamed, except that the last
+batch carries its filled rows only, where ``mash_tpu`` pads it with zero
+rows to the fixed shape its compiled folds need.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from typing import Iterator, List, Optional, Sequence
 import numpy as np
 
 from mash_tpu_torch.io.fastx import _open_stream
+from mash_tpu_torch.utils.profiling import count
 
 DEFAULT_BLOCK = 8 << 20
 DEFAULT_DEPTH = 4
@@ -59,9 +62,12 @@ class FileMeta:
 class IngestPipeline:
     """Background parse/pack of one or more files into device batches.
 
-    Yields ``[batch_rows, chunk_len]`` uint8 arrays (the last batch is
-    zero-row padded).  After the generator is exhausted, ``metas`` holds
-    one :class:`FileMeta` per input path, in order.
+    Yields C-contiguous ``[rows, row_bytes]`` uint8 arrays: every batch
+    but the last holds ``batch_rows`` rows, and the last holds only its
+    filled rows (1 to ``batch_rows``), so a consumer never sees a padding
+    row.  The rows cut from the last batch are counted as
+    ``ingest:padding_rows_cut``.  After the generator is exhausted,
+    ``metas`` holds one :class:`FileMeta` per input path, in order.
     """
 
     def __init__(
@@ -168,8 +174,8 @@ class IngestPipeline:
                     )
                 )
             if fill:
-                batch[fill:] = 0
-                put(batch)
+                count("ingest:padding_rows_cut", R - fill)
+                put(batch[:fill])
             put(None)
         except GeneratorExit:
             pass  # consumer abandoned the stream; just exit

@@ -1183,6 +1183,51 @@ def test_fold_batches_cuda_matches_cpu(gpu, mesh2):
     np.testing.assert_array_equal(refs["cuda"].counts, refs["cpu"].counts)
 
 
+def test_fold_batches_trimmed_equals_padded_cuda(gpu, tmp_path, monkeypatch):
+    """A 4.2 Mbase genome in three records through the ingest pipeline
+    (packed, 1 MiB rows, 32-row batches): its one batch of filled rows
+    and the same batch padded back to 32 zero rows fold on the card
+    (K1, K6, K5 for the rows without the certificate) to the same
+    sketch, and ``sketch:rows_folded`` counts the rows of the batches
+    given."""
+    from mash_tpu_torch.core.engine import DEFAULT_CHUNK
+    from mash_tpu_torch.io.ingest import IngestPipeline, ingest_available
+    from mash_tpu_torch.utils import profiling
+
+    if not ingest_available():
+        pytest.skip("native ingest library unavailable")
+    monkeypatch.setattr(profiling, "_TIMINGS_ENABLED", True)
+    path = tmp_path / "genome.fa"
+    with open(path, "wb") as f:
+        for r, n in enumerate((2_500_000, 1_200_000, 500_000)):
+            seq = _seq(98 + r, b"ACGT", n).tobytes()
+            f.write(b">g%d\n" % r)
+            f.write(b"\n".join(seq[i : i + 80] for i in range(0, n, 80)))
+            f.write(b"\n")
+    pipe = IngestPipeline([str(path)], 21, DEFAULT_CHUNK, 32, pack_mode=1)
+    try:
+        trimmed = list(pipe.batches())
+    finally:
+        pipe.close()
+    assert [b.shape[0] for b in trimmed] == [5]
+    padded = np.zeros((32, trimmed[0].shape[1]), np.uint8)
+    padded[:5] = trimmed[0]
+    refs, folded = [], []
+    for batches in (trimmed, [padded]):
+        profiling.pop_records()
+        before = sk.LAUNCHES["sketch_select"]
+        eng = _engine("cuda", s=1000)
+        refs.append(eng.state_to_ref(eng.fold_batches(
+            eng.empty_state(), batches, packed=True)))
+        assert sk.LAUNCHES["sketch_select"] > before
+        _spans, counts = profiling.pop_records()
+        folded.append(profiling.counter_totals(counts)["sketch:rows_folded"])
+    assert folded == [5, 32]
+    assert len(refs[0].hashes) == 1000
+    np.testing.assert_array_equal(refs[0].hashes, refs[1].hashes)
+    np.testing.assert_array_equal(refs[0].counts, refs[1].counts)
+
+
 def test_mesh_sketch_failing_rows_cuda_matches_cpu(gpu):
     """``sharded_sketch_chunks`` over ``[cuda:0, cuda:0]`` settles both
     devices' failing rows."""
