@@ -32,7 +32,7 @@ from mash_tpu_torch.ops.fold_kernel import (
     fold_sorted,
     sort_unsigned,
 )
-from mash_tpu_torch.utils.profiling import count
+from mash_tpu_torch.utils.profiling import count, stage
 
 
 def empty_state(s: int, device="cpu"):
@@ -282,7 +282,8 @@ def fold_batch(state, sh: torch.Tensor, sc: torch.Tensor, pending=(), *,
 
     When ``state`` is a :class:`PendingState`, its last batch is settled
     only after this batch's merge has been queued, so the card has this
-    batch to run while the host waits for the earlier mask.  ``pending``
+    batch to run while the host waits for the earlier mask (the stage
+    ``engine:settle``, with that wait in it).  ``pending``
     holds this batch's :class:`Uncertified` rows (None entries are
     skipped); the result is a :class:`PendingState` when any remain,
     else a plain ``(H, C)``.  No step reads the device.
@@ -294,7 +295,9 @@ def fold_batch(state, sh: torch.Tensor, sc: torch.Tensor, pending=(), *,
         base, prev = tuple(state), ()
     new = tree_merge(torch.cat([base[0][None], sh]),
                      torch.cat([base[1][None], sc]), s=s)
-    new = merge_uncertified(new, prev)
+    if prev:
+        with stage("engine:settle"):
+            new = merge_uncertified(new, prev)
     pending = [p for p in pending if p is not None]
     return PendingState(*new, pending) if pending else new
 

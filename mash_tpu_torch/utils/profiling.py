@@ -31,6 +31,11 @@ named ``wait:*`` are the places where the host blocks on the card:
 - ``wait:to_host``: ``utils.transfer.to_host``, a blocking read-back
   (a finished sketch, the screen's counts).
 
+Two stages hold such waits: ``transfer:upload`` (``Uploader.upload``:
+the slot's wait, the copy into it and the start of the copy to the card)
+and ``engine:settle`` (``ops.sketch_ops.fold_batch``: the previous
+batch's rows without the certificate merged in, after its mask's wait).
+
 The counters ``sketch:rows_folded`` (rows of per-row states folded into
 a sketch state) and ``sketch:rows_recomputed`` (rows without the
 certificate, recomputed on the plain path) count the certificate's
