@@ -910,12 +910,13 @@ def screen_items(rng) -> None:
     """Prints the device milliseconds of the work beside ``screen_count``
     on the screen path: the hash pass (``hash_chunk``: the kernel
     ``hash_windows``, with its plain twin beside it) and the cardinality
-    fold of one ingest batch."""
+    fold of one ingest batch (``sketch_select`` and the candidate fold,
+    with the plain top-k fold of the hash pass's output beside it)."""
     import torch
 
     from mash_tpu_torch.core.engine import DEFAULT_CHUNK
     from mash_tpu_torch.core.loader import _fast_batch_rows
-    from mash_tpu_torch.ops import kmers, sketch_ops
+    from mash_tpu_torch.ops import kmers, sketch_kernel, sketch_ops
 
     dev = torch.device("cuda")
     rows = torch.from_numpy(random_chunks(
@@ -929,6 +930,9 @@ def screen_items(rng) -> None:
             cuda_ms(lambda: kmers.hash_chunk(rows, **kw)),
         "hash_chunk_plain " + shape:
             cuda_ms(lambda: kmers.hash_chunk_plain(rows, **kw)),
+        "sketch_chunks_async (sketch_select, fold_candidates) " + shape:
+            cuda_ms(lambda: sketch_kernel.sketch_chunks_async(rows, **kw,
+                                                              s=S)),
         "sketch_chunk_batch [%d, %d]" % tuple(h.shape):
             cuda_ms(lambda: sketch_ops.sketch_chunk_batch(h, v, s=S)),
     }
@@ -1364,10 +1368,9 @@ def phase_screen(rng, folder, paths, all_msh, profile=None):
         counts = {}
         with sort_sizes() as sorts:
             out, line = counted_cli(
-                name, argv, ("screen_table", "screen_count", "hash_windows",
-                             "fold_sorted"),
-                profile, counts,
+                name, argv, SCREEN_KERNELS, profile, counts,
                 lambda w: {"bases": bases, "bases_per_s": bases / w})
+        require_select_per_batch(name, counts[name])
         require(not any(m.startswith("mash_tpu_torch.ops.screen_")
                         for m in sorts),
                 "%s sorted in the screen counter: %s" % (name, sorts))
@@ -1494,6 +1497,21 @@ def write_plasmids(rng, path) -> int:
 # stdout, stderr and wall seconds of each main-path command of phases 4 to
 # 8, by name: phase 9 holds its two-rank runs against them
 MAIN_RUNS: dict = {}
+
+
+# what screen and taxscreen launch: the DB's table once, and a batch's
+# window hash and count (K5, K4) and its cardinality fold (K1, K6)
+SCREEN_KERNELS = ("screen_table", "screen_count", "hash_windows",
+                  "sketch_select", "fold_sorted")
+
+
+def require_select_per_batch(name, launches):
+    """The screen fold selects each batch's bottom hashes with one
+    ``sketch_select`` launch, as the counter probes it with one
+    ``screen_count`` launch (one device)."""
+    require(launches["sketch_select"] == launches["screen_count"],
+            "%s launched sketch_select %d times for %d batches"
+            % (name, launches["sketch_select"], launches["screen_count"]))
 
 
 def counted_cli(name, argv, kernels, profile, cmd_launches, extra,
@@ -2099,10 +2117,7 @@ def phase_ranks(folder, paths, all_msh, plasmids_msh, find_head):
     ]
     kernels = {"sketch_reads": ["sketch_select", "fold_sorted"],
                "triangle_4096": ["pairwise32"], "dist_d": ["pairwise32"],
-               "screen": ["screen_table", "screen_count", "hash_windows",
-                          "fold_sorted"],
-               "taxscreen": ["screen_table", "screen_count",
-                             "hash_windows", "fold_sorted"]}
+               "screen": SCREEN_KERNELS, "taxscreen": SCREEN_KERNELS}
     t0 = time.perf_counter()
     results = run_ranks(folder, commands)
     print("phase ranks: %d ranks ran %d commands in %.1f s (startup "
@@ -2120,6 +2135,9 @@ def phase_ranks(folder, paths, all_msh, plasmids_msh, find_head):
                 require(results[rank][name]["launches"][kernel] > 0,
                         "rank %d's %s did not launch %s" % (rank, name,
                                                               kernel))
+            if kernels.get(name) is SCREEN_KERNELS:
+                require_select_per_batch("rank %d's %s" % (rank, name),
+                                         results[rank][name]["launches"])
         single = (MAIN_RUNS[name] if name != "find_head"
                   else {"out": find_head[1], "wall_s": find_head[2]})
         print(json.dumps({

@@ -6,12 +6,13 @@ the mixture through them (``src/mash/CommandScreen.cpp:93-116, 484-599``).
 Here the DB becomes one sorted distinct hash array (+ CSR segments to
 reference indices, built on the host) and, on the device, an
 open-addressing table of it (``screen_kernel.build_table``); each streamed
-batch of chunks is hashed on the device (plain torch
-``ops.kmers.hash_chunk``), and :class:`ScreenCounter` hands its hashes, in
-the order the hashing wrote them, to the ``screen_count`` kernel, which
-adds every hit to an int64 total per DB hash.  The same hashes feed the
-bottom-s fold behind the mixture's cardinality estimate.  Counts are total
-occurrences, as in the reference.
+batch of chunks is hashed on the device (``ops.kmers.hash_chunk``), and
+:class:`ScreenCounter` hands its hashes, in the order the hashing wrote
+them, to the ``screen_count`` kernel, which adds every hit to an int64
+total per DB hash.  The bottom-s fold behind the mixture's cardinality
+estimate takes the batch's bytes through the sketch kernel and its
+candidate fold (``sketch_kernel.sketch_chunks_async``), as the sketch
+engine does.  Counts are total occurrences, as in the reference.
 
 ``mash_tpu`` picks its counting tier by DB size, and its counts overflow
 as that tier does: on one TPU a DB of more than ``BIG_DB_MIN`` hashes goes
@@ -29,7 +30,7 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
-from mash_tpu_torch.ops import screen_kernel, sketch_ops
+from mash_tpu_torch.ops import screen_kernel, sketch_kernel, sketch_ops
 from mash_tpu_torch.ops.kmers import complement_lut_az
 from mash_tpu_torch.ops.sketch_ops import EMPTY
 from mash_tpu_torch.utils import resolve_device, stage
@@ -162,12 +163,14 @@ def make_screen_fold(params, db_hashes: np.ndarray, s: int, device=None):
     The DB is range-sharded over the devices ``device`` spans
     (``parallel.mesh.local_mesh``), one :class:`ScreenCounter` a device
     (``parallel.mesh.ShardedScreenCounter``): one device holds the
-    whole DB.  Nothing reads the device before ``finalize``: the
-    cardinality fold's certificate is settled one batch behind
-    (``sketch_ops.fold_batch``), so ``state`` may be a
-    ``sketch_ops.PendingState``, which settles when it is read.
+    whole DB.  The cardinality state is folded from the rows' bytes by
+    ``sketch_kernel.sketch_chunks_async`` (on a CUDA tensor the sketch
+    kernel and the candidate fold, on a CPU tensor their plain route).
+    Nothing reads the device before ``finalize``: the sketch kernel's
+    certificate is settled one batch behind (``sketch_ops.fold_batch``),
+    so ``state`` may be a ``sketch_ops.PendingState``, which settles when
+    it is read.
     """
-    from mash_tpu_torch.ops.kmers import hash_chunk
     from mash_tpu_torch.parallel.mesh import (
         ShardedScreenCounter,
         _hash_kw,
@@ -178,17 +181,12 @@ def make_screen_fold(params, db_hashes: np.ndarray, s: int, device=None):
     counter = ShardedScreenCounter(local_mesh(dev), db_hashes)
     kw = _hash_kw(params)
 
-    def recompute(rows):
-        return sketch_ops.sketch_chunk(*hash_chunk(rows, **kw), s=s)
-
     def fold_rows(counts, state, rows):
         with stage("screen:fold_batch"):
-            h, v = counter.add_rows(rows, params)
-            sh, sc, bad = sketch_ops.sketch_chunk_batch_deferred(
-                h, v, s=s, use64=params.use64)
-            pending = ([] if bad is None
-                       else [sketch_ops.Uncertified(rows, bad, recompute)])
-            state = sketch_ops.fold_batch(state, sh, sc, pending, s=s)
+            counter.add_rows(rows, params)
+            sh, sc, pending = sketch_kernel.sketch_chunks_async(
+                rows, **kw, s=s)
+            state = sketch_ops.fold_batch(state, sh, sc, [pending], s=s)
         return counts, state
 
     def fold(counts, state, chunk):

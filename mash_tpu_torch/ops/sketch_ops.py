@@ -28,7 +28,6 @@ import torch
 from mash_tpu_torch.ops.fold_kernel import (
     EMPTY,
     biased,
-    empty_rows,
     fold_sorted,
     sort_unsigned,
 )
@@ -90,24 +89,6 @@ def sketch_chunk_batch(
     if ok is None or bool(ok.all()):
         return Hf, Cf
     return sketch_chunk(hashes, valid, s=s)
-
-
-def sketch_chunk_batch_deferred(
-    hashes: torch.Tensor, valid: torch.Tensor, *, s: int, use64: bool = True
-):
-    """:func:`sketch_chunk_batch` without its host read.
-
-    Returns ``(H [B, s], C [B, s], bad)``: ``bad`` is the device mask of
-    the rows without the certificate, whose states are left empty here
-    (:func:`empty_rows`), or None when every row is exact by
-    construction.  The caller recomputes those rows later
-    (:class:`Uncertified`).
-    """
-    Hf, Cf, ok = _topk_fold(hashes, valid, s, use64)
-    if ok is None:
-        return Hf, Cf, None
-    Hf, Cf = empty_rows(Hf, Cf, ~ok)
-    return Hf, Cf, ~ok
 
 
 def _topk_fold(hashes, valid, s, use64):
@@ -185,8 +166,9 @@ def tree_merge(states_h: torch.Tensor, states_c: torch.Tensor, *, s: int):
 # -- the deferred certificate ----------------------------------------------
 #
 # A batch's rows whose certificate fails on the device are emptied there
-# (``empty_rows``) and folded in as they are; their exact states are
-# merged in later, once the mask of those rows has reached the host.
+# (``fold_kernel.empty_rows``) and folded in as they are; their exact
+# states are merged in later, once the mask of those rows has reached
+# the host.
 # This is exact because the bottom-s merge with summed counts is
 # associative and commutative, so the order of the merges does not
 # matter, and because a hash the state drops can never return: it was

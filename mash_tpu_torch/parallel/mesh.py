@@ -178,8 +178,9 @@ class ShardedScreenCounter:
 
     def add_rows(self, rows: torch.Tensor, params):
         """Count the hashes of ``[B, L]`` uint8 chunk rows on every
-        device; returns ``devices[0]``'s ``(hashes, valid)`` of them, for
-        the cardinality fold."""
+        device; returns ``devices[0]``'s ``(hashes, valid)`` of them,
+        which only :func:`sharded_screen_counts` still folds (the screen
+        fold sketches the rows' bytes itself)."""
         from mash_tpu_torch.ops.kmers import hash_chunk
 
         kw = _hash_kw(params)

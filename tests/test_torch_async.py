@@ -87,6 +87,17 @@ def _jax_state(rows, s):
 
 
 @pytest.fixture
+def one_thread():
+    """One torch intra-op thread for the test: on cores that other test
+    workers hold, each of many small plain-torch ops otherwise waits for
+    a whole team of threads to be scheduled."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture
 def deferred(monkeypatch):
     """The engine's CPU folds (one device, and each device of the mesh)
     through the kernel's route: the deferred certificate on
@@ -176,14 +187,16 @@ def test_fused_equals_deferred_settled():
     assert torch.equal(H, Hp) and torch.equal(C, Cp)
 
 
-def test_screen_fold_deferred_equals_mash_tpu():
-    """The screen fold's cardinality state: the top-k certificate settled
-    a batch behind, equal to ``mash_tpu``'s ``sketch_chunk_batch``."""
+@pytest.mark.usefixtures("one_thread")
+def test_screen_fold_deferred_equals_mash_tpu(deferred):
+    """The screen fold's cardinality state: the sketch kernel's
+    certificate (its plain version) settled a batch behind, equal to
+    ``mash_tpu``'s ``sketch_chunk_batch``."""
     from mash_tpu.ops.kmers import hash_chunk as jax_hash
     from mash_tpu_torch.ops import screen_ops
 
     rng = np.random.default_rng(14)
-    # the top-k route needs more than 16 subrows; m = 256 < s
+    # the kernel's route needs more than 8 subrows; m = 256 < s
     rows = _fold_rows(rng, 6, width=40 * 1024)
     p = default_nucleotide_params()
     p.min_hashes_per_window = 400
@@ -195,11 +208,13 @@ def test_screen_fold_deferred_equals_mash_tpu():
     for b in (rows[:3], rows[3:]):
         counts, state = fold_rows(counts, state, torch.from_numpy(b))
     assert isinstance(state, sketch_ops.PendingState)
+    assert deferred["recomputed"] == 1  # the tail row, a batch behind
     kw = dict(alphabet=alphabet_bytes(jax_params().alphabet), k=K, seed=42,
               use64=True, noncanonical=False, preserve_case=False)
     jh, jv = jax_hash(jnp.asarray(rows), **kw)
     wh, wc = jops.tree_merge(*jops.sketch_chunk_batch(jh, jv, s=s), s=s)
     h, c = state
+    assert deferred["recomputed"] == 2  # and the repeat row, when read
     np.testing.assert_array_equal(h.numpy(), np.asarray(wh))
     np.testing.assert_array_equal(c.numpy(), np.asarray(wc))
 

@@ -27,7 +27,8 @@ batches, a DB of one hash, a DB hash of 2^64-1, valid 2^64-1 lanes,
 above ``BIG_DB_MIN`` and a batch of more than 2^31 bytes.  Commands on
 the card must also print and write what they do on the CPU: ``sketch
 -i`` with rows that run plain, take the kernel, or fail its certificate,
-``sketch -r`` and ``-r -m 2``, the triangle's stripes with their ragged
+``sketch -r`` and ``-r -m 2``, the screen fold's cardinality state through
+the sketch kernel at the screen batch, the triangle's stripes with their ragged
 last tiles, and the streamed ``triangle``.  The mesh functions over
 ``[cuda:0, cuda:0]`` must equal the one-device route, and two gloo ranks
 on the card must assemble ``screen`` and the streamed ``triangle`` into
@@ -1004,6 +1005,72 @@ def test_mesh_screen_cuda_matches_one_device(gpu):
     np.testing.assert_array_equal(counts, finalize(c0))
     assert all(torch.equal(a, b) for a, b in zip(state, want))
     assert (counts[np.searchsorted(db, sampled)] > 0).all()
+
+
+def _read_rows(rng, genome, n_rows, width, fill=1.0):
+    """``n_rows`` rows of 150 bp reads of ``genome``, a 0x00 after each,
+    the last row filled to ``fill`` of its width and 0x00 after."""
+    n = -(-n_rows * width // 151)
+    at = rng.integers(0, len(genome) - 150, n)
+    reads = np.zeros((n, 151), np.uint8)
+    reads[:, :150] = genome[at[:, None] + np.arange(150)]
+    rows = reads.reshape(-1)[: n_rows * width].reshape(n_rows, width).copy()
+    rows[-1, int(fill * width) :] = 0
+    return rows
+
+
+def test_screen_fold_rows_k1_cuda_matches_cpu(gpu, monkeypatch):
+    """``make_screen_fold``'s ``fold_rows`` on the card (K5 and K4 count,
+    K1 and K6's candidate fold the cardinality state) against the same
+    fold on the CPU: a [32, 1 MiB] batch of reads whose last row is 76 %
+    full, then a batch with a row of a tandem repeat, which lacks K1's
+    certificate; the second alone, then both in turn.  One K1 launch a batch,
+    and the rows recomputed are those the plain route finds uncertified."""
+    from mash_tpu_torch.ops import sketch_ops
+    from mash_tpu_torch.ops.kmers import hash_chunk
+    from mash_tpu_torch.utils import profiling
+
+    params = default_nucleotide_params(21, 1000, 42)
+    kw = dict(alphabet=DNA, k=21, seed=42, use64=True, noncanonical=False,
+              preserve_case=False)
+    rng = np.random.default_rng(86)
+    genome = _seq(87, b"ACGT", 5_000_000)
+    big = _read_rows(rng, genome, 32, 1 << 20, fill=0.76)
+    small = _read_rows(rng, genome, 4, 1 << 20)
+    repeat = np.resize(_seq(88, b"ACGT", 171), 1 << 21)
+    small[2] = _read_rows(rng, repeat, 1, 1 << 20)[0]
+    h, v = hash_chunk(torch.from_numpy(big[:1]).to(gpu), **kw)
+    db = np.unique(np.concatenate([
+        np.unique(h[v].cpu().numpy().view(np.uint64))[::200],
+        rng.integers(0, 2**63, 20000, dtype=np.int64).astype(np.uint64)]))
+    bad = [int(sk.sketch_chunks_deferred(torch.from_numpy(b), **kw, s=1000)
+               [2].mask.numpy().sum()) for b in (big, small)]
+    assert bad[1] >= 1
+
+    def run(device, batches):
+        _f, fold_rows, c0, finalize = so.make_screen_fold(params, db, 1000,
+                                                          device)
+        state = sketch_ops.empty_state(1000, device)
+        for b in batches:
+            c0, state = fold_rows(c0, state, torch.from_numpy(b).to(device))
+        h, c = state
+        return finalize(c0), h.cpu(), c.cpu()
+
+    monkeypatch.setattr(profiling, "_TIMINGS_ENABLED", True)
+    for which in ([small], [big, small]):
+        want = run("cpu", which)
+        profiling.pop_records()
+        before = sk.LAUNCHES["sketch_select"]
+        got = run(gpu, which)
+        _spans, counts = profiling.pop_records()
+        totals = profiling.counter_totals(counts)
+        assert sk.LAUNCHES["sketch_select"] == before + len(which)
+        assert totals["sketch:rows_folded"] == sum(len(b) for b in which)
+        assert totals.get("sketch:rows_recomputed", 0) == sum(
+            bad[0 if b is big else 1] for b in which)
+        np.testing.assert_array_equal(got[0], want[0])
+        assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+        assert got[0].sum() > 0 and int((got[2] > 0).sum()) == 1000
 
 
 def test_two_ranks_screen_triangle_on_one_card(gpu, tmp_path, monkeypatch):

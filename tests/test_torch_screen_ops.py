@@ -369,6 +369,128 @@ def test_make_screen_fold_matches_mash_tpu():
         np.testing.assert_array_equal(a, np.asarray(b))
 
 
+K1_WIDTH = 20 * 1024  # more than 8 x 2048 windows a row: K1's route
+
+
+def _pack_reads(reads, k, width):
+    """Reads packed into zero-padded ``[rows, width]`` uint8 rows as a
+    part's ingest rows hold them: 0x00 between reads, k-1 bytes shared
+    by consecutive rows, the last row short."""
+    from mash_tpu_torch.core.engine import chunk_stream
+
+    rows = list(chunk_stream(reads, k, width))
+    out = np.zeros((len(rows), width), np.uint8)
+    for i, (chunk, used) in enumerate(rows):
+        out[i, :used] = np.frombuffer(chunk, np.uint8)[:used]
+    return out
+
+
+@pytest.fixture
+def one_thread():
+    """One torch intra-op thread for the test: on cores that other test
+    workers hold, each of many small plain-torch ops otherwise waits for
+    a whole team of threads to be scheduled."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _read_batches(rng, k, width):
+    """Two ``[2, width]`` batches of 150 bp reads of a 4 kb phage-sized
+    genome at deep coverage: the first ends with the part's short last
+    row, the second starts with a row of reads of a tandem repeat of a
+    171 bp unit (low complexity: fewer than s distinct hashes, each many
+    times)."""
+    genome = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, 4000)]
+    unit = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, 171)]
+    repeat = np.resize(unit, 30_000)
+
+    def reads(seq, n):
+        return [seq[p : p + 150].tobytes()
+                for p in rng.integers(0, len(seq) - 150, n)]
+
+    part = _pack_reads(reads(genome, 200), k, width)
+    low = _pack_reads(reads(repeat, 135), k, width)
+    more = _pack_reads(reads(genome, 135), k, width)
+    assert part.shape[0] == 2 and not part[-1, width // 2 :].any()
+    assert low.shape[0] == more.shape[0] == 1
+    return [part, np.concatenate([low, more])]
+
+
+@pytest.mark.usefixtures("one_thread")
+@pytest.mark.parametrize("k", [21, 16], ids=["k21_64bit", "k16_32bit"])
+def test_screen_fold_rows_k1_route_matches_mash_tpu(monkeypatch, k):
+    """``fold_rows`` through the sketch kernel's route (K1 and K6's
+    candidate fold, as their plain versions) settles to ``mash_tpu``'s
+    state and to the port's plain CPU route, with unchanged counts; the
+    low-complexity row lacks the certificate, is recomputed a batch
+    behind, and holds hashes of the final state."""
+    from mash_tpu_torch.ops import sketch_kernel as tsk1
+    from mash_tpu_torch.ops.kmers import alphabet_bytes, hash_chunk
+    from mash_tpu_torch.utils import profiling
+
+    rng = np.random.default_rng(40 + k)
+    s = 200
+    jp = j_params(k, s)
+    tp = params_from_numpy(jp)
+    assert tp.use64 == (k > 16)
+    batches = _read_batches(rng, k, K1_WIDTH)
+
+    def distinct(rows):
+        h, v = hash_chunk(torch.from_numpy(rows),
+                          alphabet=alphabet_bytes(tp.alphabet), k=k,
+                          seed=tp.seed, use64=tp.use64,
+                          noncanonical=tp.noncanonical,
+                          preserve_case=tp.preserve_case)
+        return np.unique(h[v].numpy().view(np.uint64))
+
+    in_part = distinct(np.concatenate([batches[0], batches[1][1:]]))
+    in_low = distinct(batches[1][:1])
+    assert len(in_low) < s
+    db = np.unique(np.concatenate(
+        [rng.choice(in_part, 300, replace=False), in_low[:20],
+         rng.integers(0, 2**32 - 1, 500, dtype=np.uint64)]))
+
+    jfold = jso.make_screen_fold(jp, jnp.asarray(db), s)
+    jc, jst = jnp.zeros(len(db) + 1, jnp.uint32), jsk.empty_state(s)
+    for b in batches:
+        jc, jst = jfold.fold_rows(jc, jst, jnp.asarray(b))
+
+    def port():
+        _fold, fold_rows, tc, finalize = tso.make_screen_fold(tp, db, s,
+                                                              "cpu")
+        st = tsketch.empty_state(s)
+        for b in batches:
+            tc, st = fold_rows(tc, st, torch.from_numpy(b))
+        return finalize(tc), st
+
+    plain_counts, plain_state = port()
+    monkeypatch.setattr(tsk1, "sketch_chunks_async",
+                        tsk1.sketch_chunks_deferred)
+    monkeypatch.setattr(profiling, "_TIMINGS_ENABLED", True)
+    profiling.pop_records()
+    counts, state = port()
+    assert isinstance(state, tsketch.PendingState)
+    got = state_to_numpy(state)  # settles the last batch
+    _spans, cnt = profiling.pop_records()
+    totals = profiling.counter_totals(cnt)
+    assert totals["sketch:rows_folded"] == sum(len(b) for b in batches)
+    assert totals["sketch:rows_recomputed"] == 1  # the low-complexity row
+
+    want_counts = np.asarray(jc)[:-1]
+    assert want_counts.sum() > 0
+    np.testing.assert_array_equal(counts, want_counts)
+    np.testing.assert_array_equal(plain_counts, want_counts)
+    want = [np.asarray(a) for a in jst]
+    kept = want[0][want[1] > 0]
+    assert len(kept) == s
+    assert np.isin(kept, np.setdiff1d(in_low, in_part)).any()
+    for st in (got, state_to_numpy(plain_state)):
+        for a, b in zip(st, want):
+            np.testing.assert_array_equal(a, b)
+
+
 def test_convert_db_table_roundtrip():
     db, seg, ids = jso.build_db_table(
         [np.array([5, 2**64 - 1], np.uint64), np.array([5, 7], np.uint64)])
