@@ -910,31 +910,28 @@ def screen_items(rng) -> None:
     """Prints the device milliseconds of the work beside ``screen_count``
     on the screen path: the hash pass (``hash_chunk``: the kernel
     ``hash_windows``, with its plain twin beside it) and the cardinality
-    fold of one ingest batch (``sketch_select`` and the candidate fold,
-    with the plain top-k fold of the hash pass's output beside it)."""
+    fold of one ingest batch (``sketch_chunks_deferred``: ``sketch_select``
+    and the candidate fold)."""
     import torch
 
     from mash_tpu_torch.core.engine import DEFAULT_CHUNK
     from mash_tpu_torch.core.loader import _fast_batch_rows
-    from mash_tpu_torch.ops import kmers, sketch_kernel, sketch_ops
+    from mash_tpu_torch.ops import kmers, sketch_kernel
 
     dev = torch.device("cuda")
     rows = torch.from_numpy(random_chunks(
         rng, _fast_batch_rows(dev), DEFAULT_CHUNK)).to(dev)
     kw = dict(alphabet=tuple(b"ACGT"), k=K, seed=42, use64=True,
               noncanonical=False, preserve_case=False)
-    h, v = kmers.hash_chunk(rows, **kw)
     shape = "[%d, %d]" % tuple(rows.shape)
     items = {
         "hash_chunk (hash_windows) " + shape:
             cuda_ms(lambda: kmers.hash_chunk(rows, **kw)),
         "hash_chunk_plain " + shape:
             cuda_ms(lambda: kmers.hash_chunk_plain(rows, **kw)),
-        "sketch_chunks_async (sketch_select, fold_candidates) " + shape:
-            cuda_ms(lambda: sketch_kernel.sketch_chunks_async(rows, **kw,
-                                                              s=S)),
-        "sketch_chunk_batch [%d, %d]" % tuple(h.shape):
-            cuda_ms(lambda: sketch_ops.sketch_chunk_batch(h, v, s=S)),
+        "sketch_chunks_deferred (sketch_select, fold_candidates) " + shape:
+            cuda_ms(lambda: sketch_kernel.sketch_chunks_deferred(
+                rows, **kw, s=S)),
     }
     print(json.dumps({"screen_items_ms": items}), flush=True)
 
@@ -2266,8 +2263,11 @@ def phase_mesh(rng, folder, paths):
     check("sharded_screen_counts", "batch %s against %d DB hashes in %d "
           "ranges" % (list(batch.shape), len(db), len(devices)),
           lambda: mesh.sharded_screen_counts(devices, params, db, [batch], S),
+          # hash_windows: each range's counts, then the recompute of any
+          # rows that lack K1's certificate
           one_device, {"screen_table": 2, "screen_count": 2,
-                       "hash_windows": 2, "fold_sorted": None}, same_counts)
+                       "hash_windows": None, "sketch_select": 1,
+                       "fold_sorted": None}, same_counts)
     pop_stage_totals()  # the one-device fold's stage: no command's
     print("phase mesh: ok in %.1f s" % (time.perf_counter() - t_phase),
           flush=True)

@@ -4,7 +4,9 @@ The counterpart of ``mash_tpu.core.engine``.  Sequences are concatenated
 with 0x00 separators, cut into overlapping chunks, hashed and
 bottom-s-reduced on the device (``ops.sketch_kernel``), and folded into
 a running sketch state with the associative merge.  The state stays on
-the device until the caller reads it back.
+the device until the caller reads it back.  The route is the same code
+on every device: on a CPU tensor each kernel's plain twin runs in its
+place, deferred certificate included.
 
 Nothing on the streaming paths waits for the card, as in ``mash_tpu``:
 batches are uploaded through pinned memory (``utils.transfer.Uploader``),
@@ -33,14 +35,14 @@ import torch
 from mash_tpu_torch.core.params import SketchParams
 from mash_tpu_torch.core.sketch import SketchRef
 from mash_tpu_torch.ops import sketch_ops
-from mash_tpu_torch.ops.kmers import alphabet_bytes, hash_chunk, unpack_chunks
+from mash_tpu_torch.ops.kmers import hash_chunk, hash_kw, unpack_chunks
 from mash_tpu_torch.ops.sketch_kernel import (
-    sketch_chunks_async,
-    sketch_chunks_auto,
+    sketch_chunks_deferred,
+    sketch_chunks_fused,
 )
 from mash_tpu_torch.parallel.mesh import (
     local_mesh,
-    sharded_sketch_chunks_async,
+    sharded_sketch_chunks_deferred,
 )
 from mash_tpu_torch.utils import resolve_device, stage
 from mash_tpu_torch.utils.transfer import Readback, Uploader, to_host
@@ -97,7 +99,7 @@ class SketchEngine:
         self.chunk_len = chunk_len
         self.device = resolve_device(device)
         self.devices = local_mesh(self.device)
-        self._alpha = alphabet_bytes(params.alphabet)
+        self._hash_kw = hash_kw(params)
         self._uploader = Uploader(self.device)
 
     def _fold_rows(self, state, chunks: torch.Tensor, chunk_len=None):
@@ -107,30 +109,25 @@ class SketchEngine:
         With ``chunk_len`` the rows are packed ingest rows (see
         ``ops.kmers.unpack_chunks``).  When the engine spans several
         devices and ``B`` divides by their count, the rows are sharded
-        over them (``parallel.mesh.sharded_sketch_chunks_async``); the
+        over them (``parallel.mesh.sharded_sketch_chunks_deferred``); the
         fold is associative, so this is exact.
         """
         s = self.params.sketch_size
         if len(self.devices) > 1 and chunks.shape[0] % len(self.devices) == 0:
-            (mh, mc), pending = sharded_sketch_chunks_async(
+            (mh, mc), pending = sharded_sketch_chunks_deferred(
                 self.devices, self.params, chunks, s, chunk_len=chunk_len)
             return sketch_ops.fold_batch(state, mh[None], mc[None], pending,
                                          s=s)
         if chunk_len is not None:
             chunks = unpack_chunks(chunks, chunk_len)
-        sh, sc, pending = sketch_chunks_async(chunks, **self._hash_kw(), s=s)
+        sh, sc, pending = sketch_chunks_deferred(chunks, **self._hash_kw,
+                                                 s=s)
         return sketch_ops.fold_batch(state, sh, sc, [pending], s=s)
 
     def _upload(self, arr: np.ndarray) -> torch.Tensor:
         """``arr`` on the engine's device, through pinned memory: the
         host does not wait for the card (``utils.transfer.Uploader``)."""
         return self._uploader.upload(arr)
-
-    def _hash_kw(self) -> dict:
-        p = self.params
-        return dict(alphabet=self._alpha, k=p.kmer_size, seed=p.seed,
-                    use64=p.use64, noncanonical=p.noncanonical,
-                    preserve_case=p.preserve_case)
 
     def _bucket(self, n: int) -> int:
         for b in _BUCKETS:
@@ -256,7 +253,7 @@ class SketchEngine:
         eager PyTorch compiles nothing per shape.
         """
         row = self._upload(np.frombuffer(data, dtype=np.uint8))
-        h, v = hash_chunk(row, **self._hash_kw())
+        h, v = hash_chunk(row, **self._hash_kw)
         return h, v, Readback(h), Readback(v)
 
     # -- windowed (minmer) mode --------------------------------------------
@@ -546,7 +543,7 @@ def sketch_records_individual(
     length take the chunked :meth:`SketchEngine.sketch_seqs`.  A record
     shorter than k is skipped and noted as ``stats["skipped"]``.
     """
-    kw = dict(engine._hash_kw(), s=engine.params.sketch_size)
+    kw = dict(engine._hash_kw, s=engine.params.sketch_size)
 
     def flush(wave):
         results = {}
@@ -567,7 +564,7 @@ def sketch_records_individual(
                     arr[r, : len(rec.seq)] = np.frombuffer(
                         rec.seq, dtype=np.uint8)
                 with stage("engine:indiv_batch"):
-                    sh, sc = sketch_chunks_auto(engine._upload(arr), **kw)
+                    sh, sc = sketch_chunks_fused(engine._upload(arr), **kw)
                     sh = sh.cpu().numpy()
                     sc = sc.cpu().numpy()
                 for r, (i, rec) in enumerate(grp):

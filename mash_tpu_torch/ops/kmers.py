@@ -64,6 +64,14 @@ def alphabet_bytes(alphabet: tuple) -> tuple:
     return tuple(i for i in range(256) if alphabet[i])
 
 
+def hash_kw(params) -> dict:
+    """The window hash's keyword arguments for a ``SketchParams``."""
+    return dict(alphabet=alphabet_bytes(params.alphabet),
+                k=params.kmer_size, seed=params.seed, use64=params.use64,
+                noncanonical=params.noncanonical,
+                preserve_case=params.preserve_case)
+
+
 def alphabet_lut(alphabet: tuple) -> np.ndarray:
     """256-entry 0/1 membership table from a tuple of member bytes."""
     lut = np.zeros(256, dtype=np.uint8)

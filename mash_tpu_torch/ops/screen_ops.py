@@ -11,8 +11,11 @@ batch of chunks is hashed on the device (``ops.kmers.hash_chunk``), and
 them, to the ``screen_count`` kernel, which adds every hit to an int64
 total per DB hash.  The bottom-s fold behind the mixture's cardinality
 estimate takes the batch's bytes through the sketch kernel and its
-candidate fold (``sketch_kernel.sketch_chunks_async``), as the sketch
-engine does.  Counts are total occurrences, as in the reference.
+candidate fold (``sketch_kernel.sketch_chunks_deferred``), as the sketch
+engine does, on every device.  :func:`fold_screen_rows` is the one fold
+of a screen batch, for ``make_screen_fold`` and the mesh's
+``sharded_screen_counts`` alike.  Counts are total occurrences, as in
+the reference.
 
 ``mash_tpu`` picks its counting tier by DB size, and its counts overflow
 as that tier does: on one TPU a DB of more than ``BIG_DB_MIN`` hashes goes
@@ -31,7 +34,7 @@ import numpy as np
 import torch
 
 from mash_tpu_torch.ops import screen_kernel, sketch_kernel, sketch_ops
-from mash_tpu_torch.ops.kmers import complement_lut_az
+from mash_tpu_torch.ops.kmers import complement_lut_az, hash_kw
 from mash_tpu_torch.ops.sketch_ops import EMPTY
 from mash_tpu_torch.utils import resolve_device, stage
 
@@ -150,44 +153,51 @@ class ScreenCounter:
         return counts_from_totals(self.totals, self.H > BIG_DB_MIN)
 
 
+def fold_screen_rows(counter, state, rows: torch.Tensor, kw: dict, *,
+                     s: int):
+    """The screen-batch fold: count a ``[B, L]`` uint8 batch's DB hashes
+    and fold its bytes into the cardinality ``state``.
+
+    ``counter`` (a ``parallel.mesh.ShardedScreenCounter``) counts the
+    rows on each of its devices.  The rows' bytes are folded once, on its
+    first device, by ``sketch_kernel.sketch_chunks_deferred`` (K1 and
+    K6's candidate fold on the card, their plain versions on the CPU),
+    and merged into ``state`` by ``sketch_ops.fold_batch``, which settles
+    the certificate one batch behind, so the result may be a
+    ``sketch_ops.PendingState``.  ``kw`` is ``ops.kmers.hash_kw``'s.
+    Nothing reads the device.
+    """
+    with stage("screen:fold_batch"):
+        counter.add_rows(rows, kw)
+        rows = rows.to(counter.devices[0], non_blocking=True)
+        sh, sc, pending = sketch_kernel.sketch_chunks_deferred(rows, **kw,
+                                                               s=s)
+        return sketch_ops.fold_batch(state, sh, sc, [pending], s=s)
+
+
 def make_screen_fold(params, db_hashes: np.ndarray, s: int, device=None):
     """Screen fold: hash, count, and cardinality state.
 
     The counterpart of ``mash_tpu``'s ``make_screen_fold_auto``.  Returns
     ``(fold, fold_rows, counts0, finalize)``: ``fold(counts, state,
-    chunk[L])`` and ``fold_rows(counts, state, rows[B, L])`` hash uint8
-    chunks on the device, count their hashes and fold them into the
-    bottom-s ``state``, returning ``(counts, state)``; ``counts`` is a
-    placeholder threaded through for the same contract, and
-    ``finalize(counts)`` returns the DB counts as uint32 numpy ``[H]``.
-    The DB is range-sharded over the devices ``device`` spans
+    chunk[L])`` and ``fold_rows(counts, state, rows[B, L])`` fold uint8
+    chunks by :func:`fold_screen_rows`, returning ``(counts, state)``;
+    ``counts`` is a placeholder threaded through for the same contract,
+    and ``finalize(counts)`` returns the DB counts as uint32 numpy
+    ``[H]``.  The DB is range-sharded over the devices ``device`` spans
     (``parallel.mesh.local_mesh``), one :class:`ScreenCounter` a device
     (``parallel.mesh.ShardedScreenCounter``): one device holds the
-    whole DB.  The cardinality state is folded from the rows' bytes by
-    ``sketch_kernel.sketch_chunks_async`` (on a CUDA tensor the sketch
-    kernel and the candidate fold, on a CPU tensor their plain route).
-    Nothing reads the device before ``finalize``: the sketch kernel's
-    certificate is settled one batch behind (``sketch_ops.fold_batch``),
-    so ``state`` may be a ``sketch_ops.PendingState``, which settles when
-    it is read.
+    whole DB.  Nothing reads the device before ``finalize``; ``state``
+    may be a ``sketch_ops.PendingState``, which settles when it is read.
     """
-    from mash_tpu_torch.parallel.mesh import (
-        ShardedScreenCounter,
-        _hash_kw,
-        local_mesh,
-    )
+    from mash_tpu_torch.parallel.mesh import ShardedScreenCounter, local_mesh
 
     dev = resolve_device(device)
     counter = ShardedScreenCounter(local_mesh(dev), db_hashes)
-    kw = _hash_kw(params)
+    kw = hash_kw(params)
 
     def fold_rows(counts, state, rows):
-        with stage("screen:fold_batch"):
-            counter.add_rows(rows, params)
-            sh, sc, pending = sketch_kernel.sketch_chunks_async(
-                rows, **kw, s=s)
-            state = sketch_ops.fold_batch(state, sh, sc, [pending], s=s)
-        return counts, state
+        return counts, fold_screen_rows(counter, state, rows, kw, s=s)
 
     def fold(counts, state, chunk):
         return fold_rows(counts, state, chunk[None])

@@ -13,11 +13,14 @@ window hash kernel on the card) and a full sort, on the same device,
 once its mask has reached the host (at once in
 :func:`sketch_chunks_fused`, a batch later on the streaming paths).
 
-:func:`sketch_select` launches the kernel for a CUDA tensor and runs its
-plain version, :func:`sketch_select_plain`, for a CPU tensor, so the CPU
-tests cover everything around the kernel.  The plain versions hash with
-``hash_chunk_plain`` on any device, so that holding the kernel to them
-on the card does not lean on the window hash kernel.
+This is the one route from bytes to states, on every device: only the
+kernel wrappers (:func:`sketch_select`, ``fold_candidates``,
+``hash_chunk``) look at the device, and on a CPU tensor each runs its
+plain version (:func:`sketch_select_plain`, ...), so the CPU tests run
+the card's control flow, deferred certificate and recompute included.
+The plain versions hash with ``hash_chunk_plain`` on any device, so that
+holding the kernel to them on the card does not lean on the window hash
+kernel.
 """
 
 from __future__ import annotations
@@ -40,7 +43,6 @@ from mash_tpu_torch.ops.sketch_ops import (
     biased,
     candidate_budget,
     sketch_chunk,
-    sketch_chunk_batch,
 )
 
 C = 2048  # windows per subrow: one CUDA block
@@ -157,12 +159,13 @@ def sketch_select_plain(
 
 def sketch_chunks_plain(chunks, *, alphabet, k, seed, use64, noncanonical,
                         preserve_case, s):
-    """``hash_chunk_plain`` + ``sketch_chunk_batch``: the plain bytes ->
-    states."""
+    """``hash_chunk_plain`` + ``sketch_chunk`` (a full sort a row): the
+    plain reference that tests and ``chip_smoke.py`` hold the route
+    against.  No program path calls it."""
     h, v = hash_chunk_plain(chunks, alphabet=alphabet, k=k, seed=seed,
                             use64=use64, noncanonical=noncanonical,
                             preserve_case=preserve_case)
-    return sketch_chunk_batch(h, v, s=s, use64=use64)
+    return sketch_chunk(h, v, s=s)
 
 
 def sketch_chunks_deferred(
@@ -183,25 +186,25 @@ def sketch_chunks_deferred(
     Returns ``(H [B, s], C [B, s], pending)`` without reading the
     device.  Rows without the certificate are EMPTY / 0 in ``H, C``;
     ``pending`` (a :class:`~mash_tpu_torch.ops.sketch_ops.Uncertified`)
-    recomputes them on the plain path once their mask has reached the
-    host, and is None when the plain path ran for the whole batch.
+    recomputes them with a full sort once their mask has reached the
+    host, and is None when the full sort ran for the whole batch.
     Merged in at any later point, those rows give the exact state (see
     ``sketch_ops``: the merge is associative and commutative).
     """
     B, L = chunks.shape
     n = L - k + 1
 
-    def plain(rows):
+    def full_sort(rows):
         h, v = hash_chunk(rows, alphabet=alphabet, k=k, seed=seed,
                           use64=use64, noncanonical=noncanonical,
                           preserve_case=preserve_case)
         return sketch_chunk(h, v, s=s)
 
     if n <= 8 * C or s * 8 > n or k > _MAX_K:
-        return (*plain(chunks), None)
+        return (*full_sort(chunks), None)
     m = candidate_budget(s, C, n)
     if m >= C:  # the kernel keeps at most C - 1 candidates per subrow
-        return (*plain(chunks), None)
+        return (*full_sort(chunks), None)
 
     cand, boundary, vcount = sketch_select(
         chunks, alphabet=alphabet, k=k, seed=seed, use64=use64,
@@ -210,7 +213,7 @@ def sketch_chunks_deferred(
     # the fold and its certificate: one K6 launch on the card
     # (fold_kernel.fold_candidates)
     Hf, Cf, bad = fold_candidates(cand, boundary, vcount, B, s)
-    return Hf, Cf, Uncertified(chunks, bad, plain)
+    return Hf, Cf, Uncertified(chunks, bad, full_sort)
 
 
 def sketch_chunks_fused(chunks: torch.Tensor, **kw):
@@ -229,29 +232,3 @@ def sketch_chunks_fused(chunks: torch.Tensor, **kw):
         sel, h, c = got
         Hf[sel], Cf[sel] = h, c
     return Hf, Cf
-
-
-def sketch_chunks_async(chunks: torch.Tensor, **kw):
-    """Device-dispatched bytes -> ``(H, C, pending)`` without a host read.
-
-    CUDA: :func:`sketch_chunks_deferred`.  CPU: the plain
-    ``hash_chunk_plain`` + ``sketch_chunk_batch``, with ``pending`` None.
-    """
-    if chunks.device.type == "cuda":
-        return sketch_chunks_deferred(chunks, **kw)
-    if chunks.device.type == "cpu":
-        return (*sketch_chunks_plain(chunks, **kw), None)
-    raise ValueError("unsupported device %s" % chunks.device)
-
-
-def sketch_chunks_auto(chunks: torch.Tensor, **kw):
-    """Device-dispatched bytes -> bottom-s states for ``[B, L]`` chunks.
-
-    CUDA: the sketch kernel (:func:`sketch_chunks_fused`).  CPU: the
-    plain ``hash_chunk_plain`` + ``sketch_chunk_batch``.
-    """
-    if chunks.device.type == "cuda":
-        return sketch_chunks_fused(chunks, **kw)
-    if chunks.device.type == "cpu":
-        return sketch_chunks_plain(chunks, **kw)
-    raise ValueError("unsupported device %s" % chunks.device)

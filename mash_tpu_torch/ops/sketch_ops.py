@@ -11,7 +11,11 @@ distinct values is associative and commutative, so here it becomes:
 Counts are total occurrence counts of each surviving hash
 (order-independent), exactly as in ``mash_tpu``.  The fold of sorted
 rows and segments is ``ops.fold_kernel.fold_sorted``: the kernel K6 on a
-CUDA tensor, the plain sort and scatter on a CPU tensor.
+CUDA tensor, the plain sort and scatter on a CPU tensor.  Bytes become
+per-row states through one route on every device,
+``sketch_kernel.sketch_chunks_deferred`` (K1's candidates, K6's fold and
+the deferred certificate below); :func:`sketch_chunk` is its full sort,
+for the rows that lack the certificate and for short rows.
 
 State representation: ``(hashes[s], counts[s])``, both int64.  Hashes
 are uint64 bit patterns sorted in *unsigned* order; empty slots have
@@ -27,7 +31,7 @@ import torch
 
 from mash_tpu_torch.ops.fold_kernel import (
     EMPTY,
-    biased,
+    biased,  # noqa: F401  (other modules import it from here)
     fold_sorted,
     sort_unsigned,
 )
@@ -62,88 +66,13 @@ def candidate_budget(s: int, C: int, n: int) -> int:
     Poisson(~1.2*s*C/n) of the globally relevant bottom hashes; a floor
     of 16 plus 6 lambdas of headroom makes an overflow (-> verified
     fallback) vanishingly rare while keeping the per-subrow selection
-    tiny.  Shared by the plain fold and the sketch kernel's caller.
+    tiny.  The budget of K1 (``sketch_kernel.sketch_chunks_deferred``).
     """
     lam = max(1.0, 1.2 * s * C / n)
     m = 16
     while m < 6 * lam:
         m *= 2
     return m
-
-
-def sketch_chunk_batch(
-    hashes: torch.Tensor, valid: torch.Tensor, *, s: int, use64: bool = True
-):
-    """Exact bottom-s fold of ``[B, n]`` hashed chunks, top-k windowed.
-
-    Semantically identical to ``sketch_chunk`` row by row: each row is
-    split into C-wide subrows, ``torch.topk`` takes the m smallest keys
-    (the high 32 hash bits, or the hash itself in 32-bit mode) of each,
-    and only those candidates are sorted and folded.  A per-row
-    exactness certificate is checked on the full 64-bit values; if any
-    row fails, the whole batch takes the full-sort path — same result.
-
-    Returns ``(H [B, s], C [B, s])`` stacked states.
-    """
-    Hf, Cf, ok = _topk_fold(hashes, valid, s, use64)
-    if ok is None or bool(ok.all()):
-        return Hf, Cf
-    return sketch_chunk(hashes, valid, s=s)
-
-
-def _topk_fold(hashes, valid, s, use64):
-    """The top-k fold of :func:`sketch_chunk_batch` and each row's
-    certificate: ``(H, C, ok)``, ``ok`` None when the rows are short
-    enough for the full sort."""
-    B, n = hashes.shape
-    C = 2048  # subrow width
-    if n <= 16 * C or s * 8 > n:
-        return (*sketch_chunk(hashes, valid, s=s), None)
-
-    m = min(candidate_budget(s, C, n), C)
-    R = (n + C - 1) // C
-
-    # selection keys (values in [0, 2^32]); invalid windows get
-    # 0xFFFFFFFF and subrow padding 2^32, so padding is picked last
-    key = _shr32(hashes) if use64 else hashes
-    key = torch.where(valid, key, torch.full_like(key, 0xFFFFFFFF))
-    if R * C != n:
-        pad = torch.full((B, R * C - n), 1 << 32, dtype=key.dtype,
-                         device=key.device)
-        key = torch.cat([key, pad], dim=1)
-    _, li = torch.topk(key.view(B * R, C), m, dim=1, largest=False)
-    base = torch.arange(R, device=key.device)[:, None] * C
-    idx = (li.view(B, R, m) + base).view(B, R * m)
-    # Pad-region picks clamp onto position n-1 and MUST be masked out:
-    # a clamped duplicate of a valid element would otherwise corrupt
-    # counts and could satisfy the all-captured certificate spuriously.
-    is_real = idx < n
-    idx = idx.clamp(max=n - 1)
-
-    cand_h = hashes.gather(1, idx)
-    cand_v = valid.gather(1, idx) & is_real
-    ch = torch.where(cand_v, cand_h, torch.full_like(cand_h, EMPTY))
-    ch, cc = sort_unsigned(ch, cand_v.long())
-    Hf, Cf = fold_sorted(ch, cc, s)
-
-    # Exactness proof per row:
-    #  (a) every valid element is in the window, or
-    #  (b) the fold yielded >= s distinct values AND the number of valid
-    #      occurrences <= X (the s-th kept distinct) in the window equals
-    #      that in the whole chunk — no occurrence of any value <= X was
-    #      missed, so both the kept hash set and its counts are complete.
-    ndist = (Cf > 0).sum(dim=1)
-    x = biased(Hf[:, s - 1 : s])
-    full_cnt = (valid & (biased(hashes) <= x)).sum(dim=1)
-    win_cnt = (cand_v & (biased(cand_h) <= x)).sum(dim=1)
-    covered = (ndist >= s) & (win_cnt == full_cnt)
-    all_valid_in = cand_v.sum(dim=1) == valid.sum(dim=1)
-    return Hf, Cf, covered | all_valid_in
-
-
-def _shr32(x: torch.Tensor) -> torch.Tensor:
-    """High 32 bits of int64 bit patterns, as values in [0, 2^32)."""
-    return (x >> 32) & 0xFFFFFFFF
 
 
 def merge_states(state_a, state_b, *, s: int):
@@ -182,8 +111,8 @@ class Uncertified:
     """Rows of one batch that lack the certificate, to be recomputed.
 
     ``rows`` is the device batch (what the kernel saw), ``bad`` its
-    device bool mask of rows to recompute, ``recompute(rows)`` the plain
-    path to their ``[b, s]`` states.  The mask's copy to the host starts
+    device bool mask of rows to recompute, ``recompute(rows)`` the full
+    sort to their ``[b, s]`` states.  The mask's copy to the host starts
     here (:class:`~mash_tpu_torch.utils.transfer.Readback`), so it is
     queued before any later batch's work.
     """

@@ -16,7 +16,9 @@ the devices overlap), and the small results meet on ``devices[0]``:
 - **Screen** (over DB hash ranges): the sorted DB is cut into contiguous
   ranges, one K4 table per device; every chunk goes to every device, and
   each counts the hits in its own range (a hash falls in exactly one
-  range, so the per-range counts concatenate exactly).
+  range, so the per-range counts concatenate exactly).  The batch's
+  cardinality state is folded once, on ``devices[0]``, by the screen
+  fold's own ``ops.screen_ops.fold_screen_rows``.
 
 The device list is an explicit argument wherever ``mash_tpu`` takes a
 ``Mesh``, so the same device may appear more than once.
@@ -30,6 +32,7 @@ import numpy as np
 import torch
 
 from mash_tpu_torch.ops import sketch_ops
+from mash_tpu_torch.ops.kmers import hash_kw
 from mash_tpu_torch.utils.transfer import to_host
 
 
@@ -57,15 +60,6 @@ def local_mesh(device: torch.device) -> List[torch.device]:
     return [device]
 
 
-def _hash_kw(params) -> dict:
-    from mash_tpu_torch.ops.kmers import alphabet_bytes
-
-    return dict(alphabet=alphabet_bytes(params.alphabet),
-                k=params.kmer_size, seed=params.seed, use64=params.use64,
-                noncanonical=params.noncanonical,
-                preserve_case=params.preserve_case)
-
-
 def _row_shards(n_rows: int, devices) -> int:
     n = len(devices)
     if n_rows % n:
@@ -74,15 +68,15 @@ def _row_shards(n_rows: int, devices) -> int:
     return n_rows // n
 
 
-def sharded_sketch_chunks_async(devices, params, chunks: torch.Tensor,
-                                s: int, chunk_len: Optional[int] = None):
+def sharded_sketch_chunks_deferred(devices, params, chunks: torch.Tensor,
+                                   s: int, chunk_len: Optional[int] = None):
     """Sketch a ``[B, L]`` uint8 chunk batch across ``devices`` without
     reading any device.
 
     ``B`` must divide by the device count.  With ``chunk_len`` set, rows
     are packed 2-bit + mask ingest rows, reconstructed on each device.
     Each device runs the deferred certificate
-    (``ops.sketch_kernel.sketch_chunks_async``), and the states move to
+    (``ops.sketch_kernel.sketch_chunks_deferred``), and the states move to
     ``devices[0]`` without waiting, so every device has its work queued
     before the host waits on any (as one SPMD program runs in
     ``mash_tpu``).  Returns ``((H [s], C [s]), pending)``: the merged
@@ -91,16 +85,16 @@ def sharded_sketch_chunks_async(devices, params, chunks: torch.Tensor,
     device that has any (``sketch_ops.merge_uncertified`` settles them).
     """
     from mash_tpu_torch.ops.kmers import unpack_chunks
-    from mash_tpu_torch.ops.sketch_kernel import sketch_chunks_async
+    from mash_tpu_torch.ops.sketch_kernel import sketch_chunks_deferred
 
     per = _row_shards(chunks.shape[0], devices)
-    kw = _hash_kw(params)
+    kw = hash_kw(params)
     states, pending = [], []
     for i, dev in enumerate(devices):
         rows = chunks[i * per : (i + 1) * per].to(dev, non_blocking=True)
         if chunk_len is not None:
             rows = unpack_chunks(rows, chunk_len)
-        sh, sc, p = sketch_chunks_async(rows, **kw, s=s)
+        sh, sc, p = sketch_chunks_deferred(rows, **kw, s=s)
         states.append(sketch_ops.tree_merge(sh, sc, s=s))
         if p is not None:
             pending.append(p)
@@ -115,10 +109,10 @@ def sharded_sketch_chunks_async(devices, params, chunks: torch.Tensor,
 
 def sharded_sketch_chunks(devices, params, chunks: torch.Tensor, s: int,
                           chunk_len: Optional[int] = None):
-    """:func:`sharded_sketch_chunks_async`, settled: the exact merged
+    """:func:`sharded_sketch_chunks_deferred`, settled: the exact merged
     ``(H [s], C [s])`` state on ``devices[0]``."""
-    state, pending = sharded_sketch_chunks_async(devices, params, chunks, s,
-                                                 chunk_len=chunk_len)
+    state, pending = sharded_sketch_chunks_deferred(
+        devices, params, chunks, s, chunk_len=chunk_len)
     return sketch_ops.merge_uncertified(state, pending)
 
 
@@ -176,21 +170,13 @@ class ShardedScreenCounter:
             for i, dev in enumerate(self.devices)
         ]
 
-    def add_rows(self, rows: torch.Tensor, params):
+    def add_rows(self, rows: torch.Tensor, kw: dict) -> None:
         """Count the hashes of ``[B, L]`` uint8 chunk rows on every
-        device; returns ``devices[0]``'s ``(hashes, valid)`` of them,
-        which only :func:`sharded_screen_counts` still folds (the screen
-        fold sketches the rows' bytes itself)."""
+        device; ``kw`` is ``ops.kmers.hash_kw``'s."""
         from mash_tpu_torch.ops.kmers import hash_chunk
 
-        kw = _hash_kw(params)
-        first = None
         for dev, counter in zip(self.devices, self.counters):
-            h, v = hash_chunk(rows.to(dev), **kw)
-            counter.add(h, v)
-            if first is None:
-                first = (h, v)
-        return first
+            counter.add(*hash_chunk(rows.to(dev), **kw))
 
     def finalize(self) -> np.ndarray:
         """The counts as uint32 numpy ``[H]``."""
@@ -204,19 +190,19 @@ def sharded_screen_counts(devices, params, db_hashes, chunks, s: int):
     """Count DB-hash occurrences over streamed chunks across ``devices``.
 
     ``db_hashes``: uint64 ``[H]`` distinct hashes, ascending; ``chunks``:
-    uint8 ``[L]`` chunks or ``[B, L]`` batches of rows.  The cardinality
-    state is folded once, on ``devices[0]``, from its copy of each chunk
-    (every device holds the same chunk, so folding each device's copy
-    would count every hash ``n_dev`` times).  Returns ``(counts [H]
-    uint32 numpy, state)``.
+    uint8 ``[L]`` chunks or ``[B, L]`` batches of rows.  Each batch goes
+    through the screen fold's ``ops.screen_ops.fold_screen_rows``: counted
+    on every device, and the cardinality state folded once, on
+    ``devices[0]`` (every device holds the same chunk, so folding each
+    device's copy would count every hash ``n_dev`` times).  Returns
+    ``(counts [H] uint32 numpy, (H [s], C [s]))``.
     """
+    from mash_tpu_torch.ops.screen_ops import fold_screen_rows
+
     counter = ShardedScreenCounter(devices, db_hashes)
+    kw = hash_kw(params)
     state = sketch_ops.empty_state(s, devices[0])
     for chunk in chunks:
         rows = chunk if chunk.dim() == 2 else chunk[None]
-        h, v = counter.add_rows(rows, params)
-        sh, sc = sketch_ops.sketch_chunk_batch(h, v, s=s,
-                                               use64=params.use64)
-        state = sketch_ops.tree_merge(torch.cat([state[0][None], sh]),
-                                      torch.cat([state[1][None], sc]), s=s)
-    return counter.finalize(), state
+        state = fold_screen_rows(counter, state, rows, kw, s=s)
+    return counter.finalize(), tuple(state)

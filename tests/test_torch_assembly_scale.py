@@ -34,6 +34,8 @@ from mash_tpu_torch.core.sketch import SketchRef
 from mash_tpu_torch.io import capnp_msh
 from mash_tpu_torch.io.ingest import IngestPipeline, ingest_available
 from mash_tpu_torch.ops import sketch_kernel as sk
+from mash_tpu_torch.ops import sketch_ops
+from mash_tpu_torch.ops.kmers import hash_kw
 from mash_tpu_torch.utils import profiling, transfer
 
 K = 21
@@ -296,7 +298,6 @@ def test_the_settle_nests_in_the_next_fold_batch(timings, monkeypatch):
         self._event = _Event()
 
     monkeypatch.setattr(transfer.Readback, "__init__", with_event)
-    monkeypatch.setattr(te, "sketch_chunks_async", sk.sketch_chunks_deferred)
     rng = np.random.default_rng(9)
     rows = np.frombuffer(b"ACGTacgt", np.uint8)[
         rng.integers(0, 8, (6, 20 * 1024))]
@@ -315,8 +316,9 @@ def test_the_settle_nests_in_the_next_fold_batch(timings, monkeypatch):
     waits = _parent_names(spans, "wait:readback")
     assert waits == ["engine:settle", "engine:settle", "engine:state_to_ref"]
     assert profiling.counter_totals(counts)["sketch:rows_recomputed"] == 1
-    monkeypatch.undo()  # the plain route, for the sketch to compare with
-    want = eng.state_to_ref(eng.fold_batches(eng.empty_state(), [rows]))
+    # the plain reference: a full sort a row, then the merge
+    want = eng.state_to_ref(sketch_ops.tree_merge(*sk.sketch_chunks_plain(
+        torch.from_numpy(rows), **hash_kw(p), s=1300), s=1300))
     np.testing.assert_array_equal(ref.hashes, want.hashes)
     np.testing.assert_array_equal(ref.counts, want.counts)
 

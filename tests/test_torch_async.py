@@ -99,9 +99,8 @@ def one_thread():
 
 @pytest.fixture
 def deferred(monkeypatch):
-    """The engine's CPU folds (one device, and each device of the mesh)
-    through the kernel's route: the deferred certificate on
-    ``sketch_select``'s plain version.  Counts the rows it recomputes."""
+    """Counts the rows that the deferred certificate (on the CPU, on
+    ``sketch_select``'s plain version) recomputes."""
     seen = {"recomputed": 0}
     states = sketch_ops.Uncertified.states
 
@@ -111,8 +110,6 @@ def deferred(monkeypatch):
             seen["recomputed"] += int(got[0].numel())
         return got
 
-    monkeypatch.setattr(te, "sketch_chunks_async", sk.sketch_chunks_deferred)
-    monkeypatch.setattr(sk, "sketch_chunks_async", sk.sketch_chunks_deferred)
     monkeypatch.setattr(sketch_ops.Uncertified, "states", counted)
     return seen
 

@@ -957,7 +957,7 @@ def test_mesh_sketch_cuda_matches_one_device(gpu):
                               ).to(gpu)
     got = mesh.sharded_sketch_chunks(_mesh2(gpu), params, packed, 1000,
                                      chunk_len=L)
-    want = sketch_ops.tree_merge(*sk.sketch_chunks_auto(
+    want = sketch_ops.tree_merge(*sk.sketch_chunks_fused(
         unpack_chunks(packed, L), **kw, s=1000), s=1000)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
 
@@ -1025,7 +1025,7 @@ def test_screen_fold_rows_k1_cuda_matches_cpu(gpu, monkeypatch):
     fold on the CPU: a [32, 1 MiB] batch of reads whose last row is 76 %
     full, then a batch with a row of a tandem repeat, which lacks K1's
     certificate; the second alone, then both in turn.  One K1 launch a batch,
-    and the rows recomputed are those the plain route finds uncertified."""
+    and the rows recomputed are those the CPU run finds uncertified."""
     from mash_tpu_torch.ops import sketch_ops
     from mash_tpu_torch.ops.kmers import hash_chunk
     from mash_tpu_torch.utils import profiling

@@ -20,12 +20,11 @@ import pytest
 import torch
 
 from mash_tpu.core.params import default_nucleotide_params as jax_params
-from mash_tpu.ops.kmers import alphabet_bytes
 from mash_tpu.parallel import mesh as jmesh
 from mash_tpu_torch.convert import params_from_numpy, state_to_numpy
 from mash_tpu_torch.core.engine import SketchEngine
 from mash_tpu_torch.ops import distance, screen_ops, sketch_ops
-from mash_tpu_torch.ops.kmers import hash_chunk
+from mash_tpu_torch.ops.kmers import hash_chunk, hash_kw
 from mash_tpu_torch.ops.sketch_kernel import sketch_chunks_plain
 from mash_tpu_torch.parallel import mesh
 
@@ -44,13 +43,6 @@ def _chunks(rng, b, n):
     return rng.choice(np.frombuffer(b"ACGT", dtype=np.uint8), size=(b, n))
 
 
-def _hash_kw(params):
-    return dict(alphabet=alphabet_bytes(params.alphabet),
-                k=params.kmer_size, seed=params.seed, use64=params.use64,
-                noncanonical=params.noncanonical,
-                preserve_case=params.preserve_case)
-
-
 def test_default_and_local_mesh():
     assert mesh.default_mesh(device="cpu") == [torch.device("cpu")]
     assert mesh.local_mesh(torch.device("cpu")) == [torch.device("cpu")]
@@ -67,7 +59,7 @@ def test_sharded_sketch_matches_single_and_mash_tpu(k):
     got = mesh.sharded_sketch_chunks(CPU4, params, torch.from_numpy(chunks),
                                      64)
     sh, sc = sketch_chunks_plain(torch.from_numpy(chunks),
-                                 **_hash_kw(params), s=64)
+                                 **hash_kw(params), s=64)
     single = sketch_ops.tree_merge(sh, sc, s=64)
     want = jmesh.sharded_sketch_chunks(_jax_mesh(), jp, jnp.asarray(chunks),
                                        64)
@@ -161,7 +153,7 @@ def _screen_inputs(seed):
     params = params_from_numpy(jp)
     chunks = [rng.choice(np.frombuffer(b"ACGT", dtype=np.uint8), size=20000)
               for _ in range(2)]
-    h, v = hash_chunk(torch.from_numpy(chunks[0]), **_hash_kw(params))
+    h, v = hash_chunk(torch.from_numpy(chunks[0]), **hash_kw(params))
     present = np.unique(h[v].numpy().view(np.uint64))[:150]
     absent = rng.integers(0, 2**63, size=200, dtype=np.int64).astype(np.uint64)
     return jp, params, chunks, np.unique(np.concatenate([present, absent]))

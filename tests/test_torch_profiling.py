@@ -18,7 +18,6 @@ import torch
 from mash_tpu_torch.core import engine as te
 from mash_tpu_torch.core.params import default_nucleotide_params
 from mash_tpu_torch.ops import screen_ops
-from mash_tpu_torch.ops import sketch_kernel as sk
 from mash_tpu_torch.ops import sketch_ops
 from mash_tpu_torch.utils import profiling
 
@@ -231,7 +230,6 @@ def test_the_certificate_counts_the_rows_it_recomputes(on, monkeypatch):
             seen["rows"] += int(got[0].numel())
         return got
 
-    monkeypatch.setattr(te, "sketch_chunks_async", sk.sketch_chunks_deferred)
     monkeypatch.setattr(sketch_ops.Uncertified, "states", counted)
     rng = np.random.default_rng(4)
     rows = _rows(rng, 6)

@@ -422,11 +422,10 @@ def _read_batches(rng, k, width):
 @pytest.mark.parametrize("k", [21, 16], ids=["k21_64bit", "k16_32bit"])
 def test_screen_fold_rows_k1_route_matches_mash_tpu(monkeypatch, k):
     """``fold_rows`` through the sketch kernel's route (K1 and K6's
-    candidate fold, as their plain versions) settles to ``mash_tpu``'s
-    state and to the port's plain CPU route, with unchanged counts; the
-    low-complexity row lacks the certificate, is recomputed a batch
-    behind, and holds hashes of the final state."""
-    from mash_tpu_torch.ops import sketch_kernel as tsk1
+    candidate fold, as their plain versions on the CPU) settles to
+    ``mash_tpu``'s state, with its counts; the low-complexity row lacks
+    the certificate, is recomputed a batch behind, and holds hashes of
+    the final state."""
     from mash_tpu_torch.ops.kmers import alphabet_bytes, hash_chunk
     from mash_tpu_torch.utils import profiling
 
@@ -457,20 +456,13 @@ def test_screen_fold_rows_k1_route_matches_mash_tpu(monkeypatch, k):
     for b in batches:
         jc, jst = jfold.fold_rows(jc, jst, jnp.asarray(b))
 
-    def port():
-        _fold, fold_rows, tc, finalize = tso.make_screen_fold(tp, db, s,
-                                                              "cpu")
-        st = tsketch.empty_state(s)
-        for b in batches:
-            tc, st = fold_rows(tc, st, torch.from_numpy(b))
-        return finalize(tc), st
-
-    plain_counts, plain_state = port()
-    monkeypatch.setattr(tsk1, "sketch_chunks_async",
-                        tsk1.sketch_chunks_deferred)
     monkeypatch.setattr(profiling, "_TIMINGS_ENABLED", True)
     profiling.pop_records()
-    counts, state = port()
+    _fold, fold_rows, tc, finalize = tso.make_screen_fold(tp, db, s, "cpu")
+    state = tsketch.empty_state(s)
+    for b in batches:
+        tc, state = fold_rows(tc, state, torch.from_numpy(b))
+    counts = finalize(tc)
     assert isinstance(state, tsketch.PendingState)
     got = state_to_numpy(state)  # settles the last batch
     _spans, cnt = profiling.pop_records()
@@ -481,14 +473,12 @@ def test_screen_fold_rows_k1_route_matches_mash_tpu(monkeypatch, k):
     want_counts = np.asarray(jc)[:-1]
     assert want_counts.sum() > 0
     np.testing.assert_array_equal(counts, want_counts)
-    np.testing.assert_array_equal(plain_counts, want_counts)
     want = [np.asarray(a) for a in jst]
     kept = want[0][want[1] > 0]
     assert len(kept) == s
     assert np.isin(kept, np.setdiff1d(in_low, in_part)).any()
-    for st in (got, state_to_numpy(plain_state)):
-        for a, b in zip(st, want):
-            np.testing.assert_array_equal(a, b)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
 
 
 def test_convert_db_table_roundtrip():

@@ -27,8 +27,7 @@ def _check(chunks, k, s, use64, noncanon):
               noncanonical=noncanon, preserve_case=False)
     ref = ps.sketch_chunks_pallas(jnp.asarray(chunks), **kw, s=s)
     x = torch.from_numpy(np.ascontiguousarray(chunks))
-    for fn in (sk.sketch_chunks_fused, sk.sketch_chunks_auto,
-               sk.sketch_chunks_plain):
+    for fn in (sk.sketch_chunks_fused, sk.sketch_chunks_plain):
         H, C = fn(x, **kw, s=s)
         np.testing.assert_array_equal(np.asarray(ref[0]),
                                       H.numpy().view(np.uint64))
@@ -87,7 +86,7 @@ def test_fused_large_budget(dna, monkeypatch):
 
     monkeypatch.setattr(sk, "sketch_select", spy)
     _check(dna, 21, s, True, False)
-    assert budgets == [m]  # sketch_chunks_fused; _auto runs plain on the CPU
+    assert budgets == [m]
 
 
 def test_select_layout(dna):

@@ -1,8 +1,8 @@
 """mash_tpu_torch.ops.sketch_ops against mash_tpu.ops.sketch_ops.
 
-States must be bit-equal to the reference's full-sort fold, including
-the certificate's fallback cases of ``tests/test_sketch_fast_fold.py``
-(heavy duplication, subrow bursts, pad clamping, key ties, 32-bit mode).
+States must be bit-equal to the reference's full-sort fold, on the
+inputs of ``tests/test_sketch_fast_fold.py`` (heavy duplication, subrow
+bursts, a tail of valid windows, key ties, 32-bit hashes).
 """
 
 import dataclasses
@@ -21,7 +21,7 @@ from mash_tpu_torch.convert import (
 )
 from mash_tpu_torch.ops import sketch_ops as ts
 
-B, N, S = 3, 50001, 100  # N > 16*2048 takes the fast path + padding
+B, N, S = 3, 50001, 100
 
 
 def _ref_states(h, v, s):
@@ -65,28 +65,25 @@ def _top_bit(rng):
 
 
 @pytest.mark.parametrize(
-    "make,p_valid,use64",
+    "make,p_valid",
     [
-        (_rand, 0.9, True),
-        (_dups, 0.9, True),  # heavy duplication -> certificate fallback
-        (_burst, 0.9, True),
-        (_rand, 0.001, True),
-        (_rand, 0.0, True),
-        (lambda rng: _rand(rng, 2**32), 0.9, False),
-        (_ties, 0.9, True),
-        (_top_bit, 0.9, True),
+        (_rand, 0.9),
+        (_dups, 0.9),  # heavy duplication
+        (_burst, 0.9),
+        (_rand, 0.001),
+        (_rand, 0.0),
+        (lambda rng: _rand(rng, 2**32), 0.9),
+        (_ties, 0.9),
+        (_top_bit, 0.9),
     ],
     ids=["random", "duplicates", "burst", "mostly_invalid", "all_invalid",
          "32bit", "hi_key_ties", "top_bit"],
 )
-def test_sketch_chunk_batch(make, p_valid, use64):
+def test_sketch_chunk_matches_mash_tpu(make, p_valid):
     rng = np.random.default_rng(3)
     h = make(rng)
     v = rng.random((B, N)) < p_valid
-    ref = _ref_states(h, v, S)
-    _assert_state(ref, ts.sketch_chunk_batch(*_torch(h, v), s=S,
-                                             use64=use64))
-    _assert_state(ref, ts.sketch_chunk(*_torch(h, v), s=S))
+    _assert_state(_ref_states(h, v, S), ts.sketch_chunk(*_torch(h, v), s=S))
 
 
 def test_tail_only_valid():
@@ -94,8 +91,7 @@ def test_tail_only_valid():
     h = _rand(rng)
     v = np.zeros((B, N), bool)
     v[:, -5:] = True
-    _assert_state(_ref_states(h, v, S),
-                  ts.sketch_chunk_batch(*_torch(h, v), s=S))
+    _assert_state(_ref_states(h, v, S), ts.sketch_chunk(*_torch(h, v), s=S))
 
 
 def test_small_and_fewer_than_s():
