@@ -379,9 +379,14 @@ def timed_cli(name, argv, env, profile, extra=None, stderr=None):
     ten host functions with the most time of their own (``cProfile``)."""
     import torch
 
-    from mash_tpu_torch.utils.profiling import pop_stage_totals
+    from mash_tpu_torch.utils.profiling import (
+        counter_totals,
+        pop_records,
+        pop_stage_totals,
+    )
 
     pop_stage_totals()
+    pop_records()
     torch.cuda.synchronize()
     reset_plain_on_card()
     line = {"command": name}
@@ -417,7 +422,11 @@ def timed_cli(name, argv, env, profile, extra=None, stderr=None):
     # the hash of stdout without the run's temporary folder (every path
     # argument lies in it), so that runs and commits compare
     stable = out.replace(os.path.dirname(argv[-1]) + os.sep, "")
+    uploads = counter_totals(pop_records()[1])
     line.update(wall_s=wall, stages_s=pop_stage_totals(),
+                upload_bytes={route: uploads.get("transfer:%s_bytes" % route,
+                                                 0)
+                              for route in ("direct", "staged")},
                 stdout_sha256=hashlib.sha256(stable.encode()).hexdigest(),
                 plain_hash_on_card=PLAIN_ON_CARD["hash_chunk_plain"],
                 plain_fold_on_card=PLAIN_ON_CARD["_fold_sorted"])
@@ -434,6 +443,18 @@ def timed_cli(name, argv, env, profile, extra=None, stderr=None):
 
 # every main-path command's JSON line, by name (phase 10 reads the hashes)
 TIMED: dict = {}
+
+
+def require_upload_route(line, direct: bool) -> None:
+    """The command's uploads took the route its input asks for:
+    ``IngestPipeline`` batches, which live in pinned memory, go up
+    straight from it with no byte staged (``direct``); ``np.frombuffer``
+    bytes, which are read-only, are all copied into a pinned slot
+    first."""
+    got = line["upload_bytes"]
+    want, other = ("direct", "staged") if direct else ("staged", "direct")
+    require(got[want] > 0 and got[other] == 0,
+            "%s uploaded %s, not all %s" % (line["command"], got, want))
 
 
 def run_cli(argv, env=None, stderr=None) -> str:
@@ -1251,9 +1272,10 @@ def phase_end_to_end(rng, folder, profile=None):
     command_registry()  # import every command before the clocks start
     reset_launches()
 
-    _, t_sketch, _ = timed_cli(
+    _, t_sketch, line = timed_cli(
         "sketch", ["sketch", "-k", str(K), "-s", str(S), "-o", all_msh,
                    *paths], gpu, profile)
+    require_upload_route(line, direct=True)
     bases = N_GENOMES * GENOME_LEN
     require(sketch_kernel.LAUNCHES["sketch_select"] > 0,
             "sketch did not launch sketch_select")
@@ -1368,6 +1390,7 @@ def phase_screen(rng, folder, paths, all_msh, profile=None):
                 name, argv, SCREEN_KERNELS, profile, counts,
                 lambda w: {"bases": bases, "bases_per_s": bases / w})
         require_select_per_batch(name, counts[name])
+        require_upload_route(line, direct=True)
         require(not any(m.startswith("mash_tpu_torch.ops.screen_")
                         for m in sorts),
                 "%s sorted in the screen counter: %s" % (name, sorts))
@@ -1571,9 +1594,10 @@ def phase_reads(rng, folder, paths, all_msh, cmd_launches,
 
     reads_msh = os.path.join(folder, "reads.msh")
     m2_msh = os.path.join(folder, "reads_m2.msh")
-    _, err, _ = run("sketch_reads", ["sketch", "-r", "-o", reads_msh,
-                                     *reads], read_bases,
-                      ["sketch_select", "fold_sorted"])
+    _, err, line = run("sketch_reads", ["sketch", "-r", "-o", reads_msh,
+                                        *reads], read_bases,
+                       ["sketch_select", "fold_sorted"])
+    require_upload_route(line, direct=True)
     print("sketch -r estimates: %s" % " | ".join(
         ln for ln in err.splitlines() if ln.startswith("Estimated")))
     _, err, line = run("sketch_reads_m2", ["sketch", "-r", "-m", "2", "-o",
@@ -1581,6 +1605,7 @@ def phase_reads(rng, folder, paths, all_msh, cmd_launches,
                        ["hash_windows"])
     require("engine:hash_bytes" in line["stages_s"],
             "sketch -r -m 2 did not take the exact route")
+    require_upload_route(line, direct=False)
     print("sketch -r -m 2 estimates: %s" % " | ".join(
         ln for ln in err.splitlines() if ln.startswith("Estimated")))
 

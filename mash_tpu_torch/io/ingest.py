@@ -10,7 +10,9 @@ engine's chunk layout.  The main thread drains the bounded queue and
 dispatches device uploads + folds, so parsing overlaps device work.
 ``mash_tpu.io.ingest`` with the imports renamed, except that the last
 batch carries its filled rows only, where ``mash_tpu`` pads it with zero
-rows to the fixed shape its compiled folds need.
+rows to the fixed shape its compiled folds need, and that on a host with
+CUDA the parser writes each batch straight into pinned (page-locked)
+memory, which ``utils.transfer.Uploader`` sends to the card as it is.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from dataclasses import dataclass
 from typing import Iterator, List, Optional, Sequence
 
 import numpy as np
+import torch
 
 from mash_tpu_torch.io.fastx import _open_stream
 from mash_tpu_torch.utils.profiling import count
@@ -68,6 +71,16 @@ class IngestPipeline:
     row.  The rows cut from the last batch are counted as
     ``ingest:padding_rows_cut``.  After the generator is exhausted,
     ``metas`` holds one :class:`FileMeta` per input path, in order.
+
+    Where CUDA is available each batch lives in pinned memory (a
+    ``.numpy()`` view of a pinned tensor from torch's caching host
+    allocator, which recycles the blocks of dropped batches), so that
+    ``utils.transfer.Uploader`` sends it to the card without copying it
+    first; elsewhere it is a plain ``np.empty`` array.  Either way it is
+    a writable C-contiguous uint8 ``np.ndarray`` of the same bytes.  The
+    pipeline hands each batch over for good and never writes it again,
+    and no holder may write it either while an upload of it can still
+    be in flight.
     """
 
     def __init__(
@@ -93,6 +106,7 @@ class IngestPipeline:
         self._q: "queue.Queue[Optional[np.ndarray]]" = queue.Queue(depth)
         self._err: Optional[BaseException] = None
         self._abandoned = False  # consumer dropped batches() mid-stream
+        self._pinned = torch.cuda.is_available()
         self._thread = threading.Thread(target=self._work, daemon=True)
         self._thread.start()
 
@@ -111,6 +125,15 @@ class IngestPipeline:
             except queue.Full:
                 continue
 
+    def _buffer(self) -> np.ndarray:
+        """A fresh ``[batch_rows, row_bytes]`` batch buffer, pinned where
+        CUDA is available."""
+        shape = (self.batch_rows, self.row_bytes)
+        if self._pinned:
+            return torch.empty(shape, dtype=torch.uint8,
+                               pin_memory=True).numpy()
+        return np.empty(shape, dtype=np.uint8)
+
     def _work(self) -> None:
         from mash_tpu_torch.native import NativeIngest
 
@@ -120,7 +143,7 @@ class IngestPipeline:
             step = L - (self.k - 1)
             spill_cap = (self.block + L) // step + 3
             spill = np.empty((spill_cap, W), dtype=np.uint8)
-            batch = np.empty((R, W), dtype=np.uint8)
+            batch = self._buffer()
             fill = 0
             put = self._put
 
@@ -129,7 +152,7 @@ class IngestPipeline:
                 # consumer owns shipped batches (no reuse)
                 nonlocal batch, fill
                 put(batch)
-                batch = np.empty((R, W), dtype=np.uint8)
+                batch = self._buffer()
                 fill = 0
 
             def absorb(rows: np.ndarray, n: int):

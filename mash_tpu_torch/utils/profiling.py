@@ -32,14 +32,18 @@ named ``wait:*`` are the places where the host blocks on the card:
   (a finished sketch, the screen's counts).
 
 Two stages hold such waits: ``transfer:upload`` (``Uploader.upload``:
-the slot's wait, the copy into it and the start of the copy to the card)
-and ``engine:settle`` (``ops.sketch_ops.fold_batch``: the previous
-batch's rows without the certificate merged in, after its mask's wait).
+the slot's wait, the copy into it where the route stages, and the start
+of the copy to the card) and ``engine:settle``
+(``ops.sketch_ops.fold_batch``: the previous batch's rows without the
+certificate merged in, after its mask's wait).
 
 The counters ``sketch:rows_folded`` (rows of per-row states folded into
 a sketch state) and ``sketch:rows_recomputed`` (rows without the
 certificate, recomputed on the plain path) count the certificate's
-misses.
+misses.  The counters ``transfer:direct_bytes`` (bytes
+``Uploader.upload`` sent straight from the caller's pinned memory) and
+``transfer:staged_bytes`` (bytes it copied into a pinned slot first)
+say how often each upload route ran.
 """
 
 from __future__ import annotations

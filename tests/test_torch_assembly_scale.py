@@ -13,11 +13,14 @@ must equal, hashes and counts, ``mash_tpu``'s sketch of the same file.
 A sketch of 3,088,286,401 bases keeps its length through ``.msh`` and
 ``info`` prints what ``mash_tpu``'s does.  Last, the stages
 ``transfer:upload`` and ``engine:settle`` nest inside
-``engine:fold_batch``, with their waits inside them.
+``engine:fold_batch``, with their waits inside them, and the upload
+sends an ingest batch in pinned memory as it is and holds it until its
+copy is done.
 """
 
 import contextlib
 import io
+import weakref
 
 import numpy as np
 import pytest
@@ -284,6 +287,78 @@ def test_the_slot_wait_nests_in_the_upload(timings, monkeypatch):
     spans, _ = profiling.pop_records()
     assert _parent_names(spans, "wait:upload_slot") == ["transfer:upload"]
     assert [s.name for s in spans].count("transfer:upload") == 2
+
+
+def _pinned_stand_in(monkeypatch, *arrays):
+    """``Tensor.is_pinned`` stood in for on the CPU: true for any address
+    inside ``arrays``, as CUDA answers for any address inside a pinned
+    block."""
+    spans = [(a.ctypes.data, a.ctypes.data + a.nbytes) for a in arrays]
+    monkeypatch.setattr(torch.Tensor, "is_pinned", lambda self, device=None:
+                        any(lo <= self.data_ptr() < hi for lo, hi in spans))
+
+
+@pytest.mark.parametrize("source", ["pinned", "pinned_rows",
+                                    "pinned_read_only", "pinned_strided",
+                                    "pageable"])
+def test_the_upload_route_follows_the_memory(timings, monkeypatch, source):
+    """A writable C-contiguous array in pinned memory (a batch, or its
+    leading rows) goes up as it is, with nothing copied into a slot
+    (``transfer:direct_bytes``); a read-only or strided view of the same
+    memory and a pageable array are copied into the slot first
+    (``transfer:staged_bytes``)."""
+    up = _card_uploader(monkeypatch, slots=2)
+    block = np.random.default_rng(5).integers(0, 255, (16, 4096), np.uint8)
+    _pinned_stand_in(monkeypatch, block)
+    if source == "pinned":
+        arr = block
+    elif source == "pinned_rows":
+        arr = block[:5]
+    elif source == "pinned_read_only":
+        arr = block[:5].view()
+        arr.flags.writeable = False
+    elif source == "pinned_strided":
+        arr = block[:, ::2]
+    else:
+        arr = block.copy()
+    want = torch.from_numpy(arr.copy())
+    assert torch.equal(up.upload(arr), want)
+    _spans, counts = profiling.pop_records()
+    totals = profiling.counter_totals(counts)
+    direct = source in ("pinned", "pinned_rows")
+    assert totals.get("transfer:direct_bytes", 0) == direct * arr.nbytes
+    assert totals.get("transfer:staged_bytes", 0) == (not direct) * arr.nbytes
+    assert up.pinned_bytes() == (not direct) * arr.nbytes
+
+
+def test_a_slot_holds_a_pinned_batch_until_its_copy_is_done(monkeypatch):
+    """The direct route keeps the caller's pinned array in its slot: a
+    batch its holder dropped at once stays alive until the slot is next
+    taken, and is let go only after the wait for its copy's event."""
+    alive_at_wait = []
+    batches = [np.full((4, 64), i, np.uint8) for i in range(3)]
+    refs = [weakref.ref(b) for b in batches]
+
+    class Event(_Event):
+        def synchronize(self):
+            alive_at_wait.append(refs[0]() is not None)
+
+    up = _card_uploader(monkeypatch, slots=2)
+    monkeypatch.setattr(torch.cuda, "Event", Event)
+    _pinned_stand_in(monkeypatch, *batches)
+
+    def send(i):
+        up.upload(batches[i])
+        batches[i] = None  # the holder drops the batch at once
+
+    send(0)
+    send(1)
+    assert refs[0]() is not None and refs[1]() is not None
+    send(2)  # takes slot 0 again: its batch goes after the wait
+    assert alive_at_wait == [True]
+    assert refs[0]() is None
+    assert refs[1]() is not None and refs[2]() is not None
+    assert up.pinned_bytes() == 0
 
 
 def test_the_settle_nests_in_the_next_fold_batch(timings, monkeypatch):

@@ -403,3 +403,27 @@ def test_uploader_is_identity_on_cpu(dtype):
     assert up.pinned_bytes() == 0
     with pytest.raises(ValueError):
         Uploader("cpu", slots=0)
+
+
+@pytest.mark.parametrize("source", ["writable", "read_only", "strided"])
+def test_uploader_on_cpu_takes_neither_card_route(monkeypatch, source):
+    """On the CPU the upload stays the identity (a writable C-contiguous
+    array comes back as the same memory, any other as a copy), and
+    neither route's byte counter moves."""
+    from mash_tpu_torch.utils import profiling
+
+    monkeypatch.setattr(profiling, "_TIMINGS_ENABLED", True)
+    profiling.pop_records()
+    arr = np.random.default_rng(4).integers(0, 256, (6, 64), np.uint8)
+    if source == "read_only":
+        arr = np.frombuffer(arr.tobytes(), np.uint8).reshape(arr.shape)
+    elif source == "strided":
+        arr = arr[:, ::2]
+    t = Uploader("cpu").upload(arr)
+    np.testing.assert_array_equal(t.numpy(), arr)
+    assert np.shares_memory(t.numpy(), arr) == (source == "writable")
+    _spans, counts = profiling.pop_records()
+    profiling.pop_stage_totals()
+    totals = profiling.counter_totals(counts)
+    assert totals.get("transfer:direct_bytes", 0) == 0
+    assert totals.get("transfer:staged_bytes", 0) == 0

@@ -27,7 +27,9 @@ batches, a DB of one hash, a DB hash of 2^64-1, valid 2^64-1 lanes,
 above ``BIG_DB_MIN`` and a batch of more than 2^31 bytes.  Commands on
 the card must also print and write what they do on the CPU: ``sketch
 -i`` with rows that run plain, take the kernel, or fail its certificate,
-``sketch -r`` and ``-r -m 2``, the screen fold's cardinality state through
+``sketch -r`` and ``-r -m 2``, ingest batches uploaded straight from
+pinned memory (and kept whole while their copies wait) beside other
+arrays staged, the screen fold's cardinality state through
 the sketch kernel at the screen batch, the triangle's stripes with their ragged
 last tiles, and the streamed ``triangle``.  The mesh functions over
 ``[cuda:0, cuda:0]`` must equal the one-device route, and two gloo ranks
@@ -1195,6 +1197,109 @@ def test_uploader_ring_reuse_under_load(gpu):
     for a, t in zip(sent, got):
         np.testing.assert_array_equal(t.cpu().numpy(), a)
     assert up.pinned_bytes() <= 2 * 4 << 16
+
+
+def _upload_counts(profiling) -> dict:
+    _spans, counts = profiling.pop_records()
+    totals = profiling.counter_totals(counts)
+    return {route: totals.get("transfer:%s_bytes" % route, 0)
+            for route in ("direct", "staged")}
+
+
+def _ingest(tmp_path, seed, n, chunk_len, rows, pack_mode):
+    """The ingest pipeline's batches of one FASTA record of ``n`` bases."""
+    from mash_tpu_torch.io.ingest import IngestPipeline, ingest_available
+
+    if not ingest_available():
+        pytest.skip("native ingest library unavailable")
+    path = tmp_path / ("g%d.fa" % seed)
+    seq = _seq(seed, b"ACGTacgtN", n).tobytes()
+    with open(path, "wb") as f:
+        f.write(b">g\n")
+        f.write(b"\n".join(seq[i : i + 80] for i in range(0, n, 80)))
+        f.write(b"\n")
+    return IngestPipeline([str(path)], 21, chunk_len, rows,
+                          pack_mode=pack_mode)
+
+
+@pytest.mark.parametrize("pack_mode", [0, 1], ids=["raw", "packed"])
+def test_ingest_batches_go_up_direct(gpu, tmp_path, monkeypatch, pack_mode):
+    """Batches of a real ``IngestPipeline`` live in pinned memory and go
+    up as they are: ``transfer:direct_bytes`` counts every byte of them,
+    ``transfer:staged_bytes`` none, and they arrive byte-equal."""
+    from mash_tpu_torch.utils import profiling
+    from mash_tpu_torch.utils.transfer import Uploader
+
+    monkeypatch.setattr(profiling, "_TIMINGS_ENABLED", True)
+    profiling.pop_records()
+    pipe = _ingest(tmp_path, 93, 3_000_000, 1 << 16, 8, pack_mode)
+    up = Uploader(gpu)
+    sent, got = [], []
+    try:
+        for batch in pipe.batches():
+            assert torch.from_numpy(batch).is_pinned()
+            sent.append(batch.copy())
+            got.append(up.upload(batch))
+    finally:
+        pipe.close()
+    torch.cuda.synchronize()
+    assert len(sent) > 3 and sent[-1].shape[0] < 8
+    assert _upload_counts(profiling) == {
+        "direct": sum(a.nbytes for a in sent), "staged": 0}
+    assert up.pinned_bytes() == 0
+    for a, t in zip(sent, got):
+        np.testing.assert_array_equal(t.cpu().numpy(), a)
+
+
+def test_dropped_pinned_batches_stay_whole_in_flight(gpu, tmp_path):
+    """The holder drops each pinned batch as soon as its upload returns,
+    while the ingest thread keeps allocating and filling new pinned
+    batches from torch's caching host allocator and each copy waits in
+    the stream behind a slow kernel: every device tensor still equals
+    the bytes of its own batch."""
+    from mash_tpu_torch.utils.transfer import Uploader
+
+    pipe = _ingest(tmp_path, 94, 16_000_000, 1 << 16, 4, 0)
+    up = Uploader(gpu)
+    sent, got = [], []
+    try:
+        for batch in pipe.batches():
+            sent.append(batch.copy())
+            torch.cuda._sleep(1_000_000)  # about half a millisecond
+            got.append(up.upload(batch))
+            del batch
+    finally:
+        pipe.close()
+    torch.cuda.synchronize()
+    assert len(sent) > 32
+    for a, t in zip(sent, got):
+        np.testing.assert_array_equal(t.cpu().numpy(), a)
+
+
+@pytest.mark.parametrize("source", ["pageable", "read_only",
+                                    "pinned_strided"])
+def test_other_arrays_are_staged(gpu, monkeypatch, source):
+    """A pageable array, a read-only one (``np.frombuffer``, as the
+    record paths upload) and a strided view of pinned memory are copied
+    into a slot first (``transfer:staged_bytes``), and arrive
+    byte-equal."""
+    from mash_tpu_torch.utils import profiling
+    from mash_tpu_torch.utils.transfer import Uploader
+
+    monkeypatch.setattr(profiling, "_TIMINGS_ENABLED", True)
+    profiling.pop_records()
+    arr = _seq(95, b"ACGTN", (8, 1 << 14))
+    if source == "read_only":
+        arr = np.frombuffer(arr.tobytes(), np.uint8).reshape(arr.shape)
+    elif source == "pinned_strided":
+        pinned = torch.empty(arr.shape, dtype=torch.uint8, pin_memory=True)
+        pinned.numpy()[:] = arr
+        arr = pinned.numpy()[:, ::2]
+    up = Uploader(gpu)
+    got = up.upload(arr)
+    torch.cuda.synchronize()
+    assert _upload_counts(profiling) == {"direct": 0, "staged": arr.nbytes}
+    np.testing.assert_array_equal(got.cpu().numpy(), arr)
 
 
 def test_readback_waits_for_its_copy(gpu):

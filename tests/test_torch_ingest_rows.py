@@ -7,10 +7,13 @@ to ``mash_tpu``'s pipeline with its zero padding rows cut, and the cut
 rows are counted as ``ingest:padding_rows_cut``.  ``fold_batches`` gives
 the same sketch on the trimmed batches as on the same batches padded back
 with zero rows, packed and raw, so a caller that still pads stays exact.
+Where CUDA is available the batches live in pinned memory, and they are
+still writable C-contiguous ``np.ndarray``s of the same bytes.
 """
 
 import numpy as np
 import pytest
+import torch
 
 from mash_tpu.io.ingest import IngestPipeline as JaxIngestPipeline
 from mash_tpu_torch.core.engine import SketchEngine
@@ -138,3 +141,39 @@ def test_fold_on_trimmed_batches_equals_padded(native, timings, tmp_path,
     np.testing.assert_array_equal(refs[0].hashes, refs[1].hashes)
     np.testing.assert_array_equal(refs[0].counts, refs[1].counts)
     assert folded == [10, 16]  # the padded batches fold their zero rows
+
+
+@pytest.mark.parametrize("pack_mode", [0, 1, 2])
+@pytest.mark.parametrize("cuda", [False, True], ids=["no_cuda", "cuda"])
+def test_batches_are_plain_arrays_pinned_where_cuda_is(native, monkeypatch,
+                                                       tmp_path, cuda,
+                                                       pack_mode):
+    """Without CUDA every batch is a plain writable C-contiguous
+    ``np.ndarray`` and nothing asks torch to pin; with CUDA (its pinning
+    stood in for on the CPU) every batch is a view of a tensor the
+    pipeline asked torch to pin.  Either way the rows are byte-equal to
+    ``mash_tpu``'s, down to a last batch of filled rows only."""
+    pinned = []
+    empty = torch.empty
+
+    def recorded_empty(*a, pin_memory=False, **kw):
+        t = empty(*a, **kw)
+        if pin_memory:
+            pinned.append(t)
+        return t
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: cuda)
+    monkeypatch.setattr(torch, "empty", recorded_empty)
+    files = CASES["several_files"]
+    paths = _write(tmp_path, np.random.default_rng(9), files)
+    got = _batches(IngestPipeline, paths, L, R, pack_mode)
+    n = sum(_file_rows(lengths) for lengths in files)
+    assert [b.shape[0] for b in got] == [R, R, n - 2 * R]
+    for b in got:
+        assert type(b) is np.ndarray and b.dtype == np.uint8
+        assert b.flags.c_contiguous and b.flags.writeable
+        assert any(np.shares_memory(b, t.numpy()) for t in pinned) == cuda
+    assert bool(pinned) == cuda
+    padded = np.concatenate(_batches(JaxIngestPipeline, paths, L, R,
+                                     pack_mode))
+    np.testing.assert_array_equal(np.concatenate(got), padded[:n])
